@@ -14,6 +14,16 @@ Phases (any failure raises, and the exit code is non-zero):
      4 blocks of 1024 queries, top-10, L2; recall 1.0 against an exact oracle
      on the card, codes resident on CUDA, and the kernel's launch count > 0
   5. durability: reopen the collection and get the same ids
+  3b. the same kernel at the shape the HNSW build gives it: N=1M (padded to
+     1,000,448 rows), Q=2048 code rows, k=128, fp32 L2 and COSINE, against its
+     plain version (stage one and the final top-128)
+  6. the HNSW path through the public API: HnswIndexParam(L2) with the
+     default m=50, ef_construction=500 -> insert the same 1M docs -> optimize
+     (graph build on the card, the kernel scoring its forward kNN pass) ->
+     flush -> batch_query_many over 4 blocks of 1024 queries at ef 128 / 256 /
+     500 (recall@10 against the exact oracle; >= 0.85 at ef=500), one profiled
+     ef=256 batch, the CUDA beam against the same beam on CPU copies of its
+     tensors (64 queries), and a reopen that loads the graph from disk
 
 The line before the last is a JSON object with the kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -22,6 +32,7 @@ card; exits non-zero without one.
 
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import statistics
@@ -41,6 +52,15 @@ REPO = Path(__file__).resolve().parent
 STAGE1_RTOL, STAGE1_ATOL = 1e-4, 1e-3
 STAGE1_MAX_ID_SWAPS = 1e-3  # share of (tile, k, q) ids that may swap on near-equal keys
 TIE_RTOL = 1e-5  # final top-k: rows whose k-th and (k+1)-th scores lie this close may differ
+N_BUILD_PAD = 1_000_448  # N rounded up to 1024 rows, as the HNSW build pads its scan
+Q_BUILD, K_BUILD = 2048, 128  # build rows per scan and knn_k + 1 (knn_k = 127 above 400k rows)
+EFS = (128, 256, 500)
+# recall@10 of zvec's C++ HNSW on the same data and index (m=50, efc=500),
+# benchmarks/ab_backfill_gaussian1m.json "reference_curve"
+REF_CURVE = {128: 0.653, 256: 0.811, 500: 0.911}
+MIN_RECALL_EF500 = 0.85
+BEAM_CHECK_Q, BEAM_CHECK_EF = 64, 128
+BEAM_RTOL = 1e-4  # CUDA beam vs CPU beam: scores, and the width of a near-tie
 
 
 def log(msg: str) -> None:
@@ -131,6 +151,26 @@ def _check_final(ks, ki, ps, pi):
     return bad, int(differ.sum()), err
 
 
+def _check_final_at_k(ks, ki, ps, pi, rtol=TIE_RTOL):
+    """Top-k (ks, ki) against a reference top-k (ps, pi) at the same k: a row
+    whose id sets differ is bad unless every id in the difference scores
+    within rtol of the row's k-th score (a near-tie at the boundary).
+    Returns (bad rows, differing rows, max |score difference| on the rows
+    whose sets agree)."""
+    k = ki.shape[1]
+    differ = (torch.sort(ki, dim=1).values != torch.sort(pi, dim=1).values).any(dim=1)
+    bad = 0
+    for r in differ.nonzero().flatten().tolist():
+        a = dict(zip(ki[r].tolist(), ks[r].tolist()))
+        b = dict(zip(pi[r].tolist(), ps[r].tolist()))
+        kth = float(ps[r, k - 1])
+        extra = [a[i] for i in a.keys() - b.keys()] + [b[i] for i in b.keys() - a.keys()]
+        bad += any(abs(v - kth) > rtol * abs(kth) for v in extra)
+    same = ~differ
+    err = float((ks[same] - ps[same]).abs().max()) if bool(same.any()) else 0.0
+    return bad, int(differ.sum()), err
+
+
 def phase_kernel_vs_plain() -> dict:
     from zvec_tpu_torch.ops import flat_scan as fs
     from zvec_tpu_torch.typing import MetricType
@@ -198,15 +238,18 @@ def _ids(results) -> np.ndarray:
     return np.array([[int(d.id) for d in docs] for docs in results], dtype=np.int64)
 
 
-def phase_main_path(workdir: Path) -> int:
-    import zvec_tpu_torch as zt
-    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
-
-    # the data of bench.py:309-312 (queries first, then the corpus)
+def _data():
+    """The data of bench.py:309-312 (queries first, then the corpus)."""
     rng = np.random.default_rng(SEED)
     queries = rng.standard_normal((Q, D)).astype(np.float32)
     qset = [np.roll(queries, i, axis=0) for i in range(4)]
     X = rng.standard_normal((N, D), dtype=np.float32)
+    return qset, X
+
+
+def phase_main_path(workdir: Path, qset, X) -> int:
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
 
     flat_scan_topk.launches = 0
     zt.init()
@@ -274,16 +317,245 @@ def phase_main_path(workdir: Path) -> int:
     return launches
 
 
+def phase_kernel_build_shape() -> dict:
+    """K1 at the HNSW build's shape (`ops/hnsw.py::knn_build_step`): the
+    queries are 2048 code rows, so each finds itself."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+    from zvec_tpu_torch.typing import MetricType
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((N_BUILD_PAD, D), generator=g, device=dev)
+    x[N:] = 0.0
+    mask = (torch.arange(N_BUILD_PAD, device=dev) < N).to(torch.int8)
+    q = x[:Q_BUILD].contiguous()
+    sq = (x * x).sum(1)
+    out = {}
+    for metric in ("L2", "COSINE"):
+        norms = torch.sqrt(sq) if metric == "COSINE" else sq
+        kw = dict(metric=MetricType[metric], topk=K_BUILD)
+        args = (q, x, norms, mask)
+        ts_k, ti_k = fs.flat_scan_stage1(*args, **kw)
+        ts_p, ti_p = fs.flat_scan_stage1(*args, plain=True, **kw)
+        torch.cuda.synchronize()
+        s1_err = float((ts_k - ts_p).abs().max())
+        s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
+        swaps = float((ti_k != ti_p).float().mean())
+        del ts_k, ti_k, ts_p, ti_p
+        ks, ki = fs.flat_scan_topk(*args, **kw)
+        ps, pi = fs.flat_scan_topk_plain(*args, **kw)
+        bad, differ, final_err = _check_final_at_k(ks, ki, ps, pi)
+        finite = bool(torch.isfinite(ks).all()) and bool((ki >= 0).all())
+        del ks, ki, ps, pi
+        k_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **kw))
+        p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **kw))
+        kf_ms = time_ms(lambda: fs.flat_scan_topk(*args, **kw))
+        pf_ms = time_ms(lambda: fs.flat_scan_topk_plain(*args, **kw))
+        log(
+            f"kernel build shape fp32 {metric:<6} N={N_BUILD_PAD} Q={Q_BUILD} k={K_BUILD}: "
+            f"stage1 max|dkey| {s1_err:.3g} id swaps {swaps:.2e}; final rows differing "
+            f"{differ} (outside ties {bad}) max|dscore| {final_err:.3g}; "
+            f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
+            f"full scan {kf_ms:.3f} ms vs plain {pf_ms:.3f} ms"
+        )
+        if not (s1_ok and swaps <= STAGE1_MAX_ID_SWAPS and bad == 0 and finite):
+            raise AssertionError(f"kernel disagrees with plain version at the build shape: {metric}")
+        out[metric] = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms,
+                           full_ms=kf_ms, full_plain_ms=pf_ms)
+    del x, q, sq, mask
+    return out
+
+
+def _beam_check(engine) -> None:
+    """The engine's beam on its CUDA tensors against the same beam on CPU
+    copies of them: ids equal, scores within BEAM_RTOL, except rows whose
+    differing ids all score within BEAM_RTOL of the row's k-th score."""
+    from zvec_tpu_torch.ops.hnsw import hnsw_search
+
+    rng = np.random.default_rng(SEED + 2)
+    qs = rng.standard_normal((BEAM_CHECK_Q, D)).astype(np.float32)
+    g = engine._dev
+    budget = min(max(10_000, int(0.1 * engine._n)), engine._n)
+    kw = dict(metric=engine._search_metric, ef=BEAM_CHECK_EF, topk=K,
+              max_steps=BEAM_CHECK_EF + 64, num_levels=g["num_levels"], frontier=4,
+              visited_bits=0, done_frac=1.0)
+
+    def run(dev):
+        t = lambda x: x.to(dev)  # noqa: E731
+        return hnsw_search(
+            torch.from_numpy(qs).to(dev), t(engine._codes), t(engine._norms), t(g["l0"]),
+            [t(x) for x in g["upper_ids"]], [t(x) for x in g["upper_nbrs"]],
+            [t(x) for x in g["upper_down"]], g["entry_rows"], None, budget, None, **kw,
+        )
+
+    cs, ci = (x.cpu() for x in run(torch.device("cuda")))
+    t0 = time.perf_counter()
+    ps, pi = run(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    bad, differ, err = _check_final_at_k(cs, ci, ps, pi, rtol=BEAM_RTOL)
+    scale = max(float(ps.abs().max()), 1.0)
+    log(f"hnsw: CUDA beam vs CPU beam on {BEAM_CHECK_Q} queries at ef={BEAM_CHECK_EF}: "
+        f"{differ} rows differ ({bad} outside near-ties), max |dscore| {err:.3g} "
+        f"on equal rows; CPU beam {cpu_s:.2f} s")
+    if bad or err > BEAM_RTOL * scale:
+        raise AssertionError("hnsw: the CUDA beam disagrees with the CPU beam")
+
+
+def _profiled(label: str, fn) -> None:
+    """Run fn() once warm, then once under torch.profiler: print the wall
+    time, the device busy share and the top device ops (self device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []  # device-side events only (kernels, copies): host ops repeat their kernels' time
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            rows.append((dt / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    log(f"profile {label}: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), idle {100 - 100 * busy / (wall * 1e3):.1f}%")
+    for ms, count, key in rows[:8]:
+        log(f"  device {ms:9.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def _profile_build_batch(engine, X) -> None:
+    """One forward batch (`knn_build_step`: K1 + stage two + prune) and one
+    merge batch (`merge_prune_step`, 2 x max_out candidates) of the 1M
+    build, profiled on the build's padded codes."""
+    from zvec_tpu_torch.ops.hnsw import knn_build_step, merge_prune_step
+
+    dev = torch.device("cuda")
+    codes = torch.zeros((N_BUILD_PAD, D), device=dev)
+    codes[:N] = torch.from_numpy(X).to(dev)
+    norms2 = (codes * codes).sum(1)
+    mask = (torch.arange(N_BUILD_PAD, device=dev) < N).to(torch.int8)
+    rows = torch.arange(Q_BUILD, device=dev)
+    m0 = engine.m0_out()
+    adj = torch.full((N, m0), -1, dtype=torch.int32, device=dev)
+    kw = dict(metric=engine._search_metric, max_out=m0)
+    _profiled(f"hnsw build forward batch (B={Q_BUILD}, knn_k={K_BUILD - 1})",
+              lambda: knn_build_step(rows, codes, norms2, mask, adj, knn_k=K_BUILD - 1, **kw))
+    l0 = engine._dev["l0"]
+    cand = torch.cat([l0[rows], l0[rows + Q_BUILD]], dim=1)
+    _profiled(f"hnsw build merge batch (B={Q_BUILD}, C={2 * m0})",
+              lambda: merge_prune_step(rows, cand, codes, norms2, adj, **kw))
+
+
+def phase_hnsw(workdir: Path, qset, X) -> int:
+    """The HNSW path: build on the card, query at three ef, check, reopen."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.ops.hnsw import hnsw_search
+
+    # HnswIndexParam's own default metric is IP; the SIFT1M shape and the
+    # reference curve are L2, so only the metric is set (m, efc default)
+    schema = zt.CollectionSchema(
+        "hnsw1m",
+        vectors=[zt.VectorSchema("vec", zt.DataType.VECTOR_FP32, D, zt.HnswIndexParam(zt.MetricType.L2))],
+    )
+    path = workdir / "hnsw1m"
+    flat_scan_topk.launches = 0
+    t0 = time.perf_counter()
+    col = zt.create_and_open(str(path), schema)
+    for lo in range(0, N, 1024):
+        col.insert([zt.Doc(id=str(i), vectors={"vec": X[i]}) for i in range(lo, min(lo + 1024, N))])
+    t_insert = time.perf_counter() - t0
+    col.optimize()
+    t_build = time.perf_counter() - t0 - t_insert
+    col.flush()
+    launches = flat_scan_topk.launches
+    seg = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0)
+    engine = seg.engine_for("vec")
+    bt = engine.build_times
+    log(f"hnsw: insert {t_insert:.2f} s, optimize {t_build:.2f} s, of which the engine build "
+        f"(data fetch + graph + upload) {engine.stats.last_build_secs:.2f} s: forward kNN "
+        f"{bt['forward_knn']:.2f} s, reverse candidates {bt['reverse']:.2f} s, merge "
+        f"{bt['merge']:.2f} s, upper levels {bt['upper_levels']:.2f} s; graph file write "
+        f"{bt['dump_aux']:.2f} s; levels {engine._dev['num_levels']} above L0; K1 launches "
+        f"in the build {launches}")
+    if launches == 0:
+        raise AssertionError("hnsw: the build never launched the flat-scan kernel")
+    if not (engine._codes.is_cuda and engine._dev["l0"].is_cuda):
+        raise AssertionError("hnsw: codes or the L0 adjacency are not on CUDA")
+
+    dev = torch.device("cuda")
+    _, oi = _exact_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(qset[0]).to(dev))
+    exp = oi[:, :K].cpu().numpy()
+    recalls, first_ids = {}, None
+    for ef in EFS:
+        param = zt.HnswQueryParam(ef=ef, done_frac=1.0)
+        first = col.batch_query("vec", qset[0], topk=K, output_fields=[], param=param)
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = col.batch_query_many("vec", qset, topk=K, output_fields=[], param=param)
+            times.append((time.perf_counter() - t1) / len(qset))
+        batch_s = min(times)
+        steps = hnsw_search.last_steps
+        got = _ids(first)
+        scores = np.array([[d.score for d in docs] for docs in first], np.float32)
+        if got.shape != (Q, K) or not np.isfinite(scores).all() or len(out) != len(qset):
+            raise AssertionError("hnsw: results are not (1024, 10) finite scores")
+        recalls[ef] = float(np.mean([len(set(got[r]) & set(exp[r])) for r in range(Q)]) / K)
+        if ef == EFS[0]:
+            first_ids = got
+        log(f"hnsw: ef={ef}: {batch_s * 1e3:.2f} ms per 1024-query batch, {Q / batch_s:.1f} qps "
+            f"(batch_query_many, {len(qset)} blocks, best of 2; {steps} beam steps in the last "
+            f"batch); "
+            f"recall@{K} {recalls[ef]:.4f} "
+            f"(zvec C++ reference curve {REF_CURVE[ef]}, built with knn_k=255; knn_k here is 127)")
+    if recalls[500] < MIN_RECALL_EF500:
+        raise AssertionError(f"hnsw: recall@10 at ef=500 is {recalls[500]:.4f} < {MIN_RECALL_EF500}")
+    param = zt.HnswQueryParam(ef=256, done_frac=1.0)
+    _profiled(f"hnsw beam batch ef=256 ({Q} queries)", lambda: engine.search(qset[0], K, None, param))
+    _profile_build_batch(engine, X)
+    _beam_check(engine)
+    col._impl.close()
+    del col, seg, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    before = flat_scan_topk.launches
+    reopened = zt.open(str(path))
+    again = _ids(reopened.batch_query("vec", qset[0], topk=K, output_fields=[],
+                                      param=zt.HnswQueryParam(ef=EFS[0], done_frac=1.0)))
+    eng2 = next(s for s in reopened._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
+    loaded = eng2._loaded_aux is not None
+    reopened._impl.close()
+    if flat_scan_topk.launches != before or not loaded:
+        raise AssertionError("hnsw: the reopened collection rebuilt its graph")
+    if not (again == first_ids).all():
+        raise AssertionError("hnsw: reopened collection returns other ids")
+    log("hnsw: reopened collection loads the graph from disk (no kernel launch) and returns identical ids")
+    return launches
+
+
 def main() -> None:
     smi = phase_toolchain()
     phase_build()
     case = phase_kernel_vs_plain()
     torch.cuda.empty_cache()
+    build_case = phase_kernel_build_shape()
+    torch.cuda.empty_cache()
+    qset, X = _data()
     workdir = REPO / "zvec_tpu_torch" / "_build" / "smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     try:
-        launches = phase_main_path(workdir)
+        flat_launches = phase_main_path(workdir, qset, X)
+        gc.collect()
+        torch.cuda.empty_cache()
+        hnsw_launches = phase_hnsw(workdir, qset, X)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(smi)
@@ -292,10 +564,12 @@ def main() -> None:
         "route": "cuda",
         "source": "zvec_tpu_torch/csrc/flat_scan.cu",
         "replaces": "zvec_tpu/ops/flat_pallas.py:92",
-        "launches": launches,
+        "launches": flat_launches + hnsw_launches,
+        "launches_by_path": {"flat_search": flat_launches, "hnsw_build": hnsw_launches},
         "max_abs_err": case["max_abs_err"],
         "ms": case["ms"],
         "plain_ms": case["plain_ms"],
+        "hnsw_build_shape": build_case,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

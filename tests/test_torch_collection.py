@@ -6,7 +6,7 @@ packages; ids must be equal and scores within 1e-4 (rtol and atol: float32
 sums in another order). The collection on disk is the state a database
 carries across, so a collection written by one package must open in the other
 and answer alike. Also: the port imports no JAX, and index types it has no
-engine for fail loudly.
+engine for (IVF, sparse fields) fail loudly.
 """
 
 import ast
@@ -171,38 +171,41 @@ def test_collection_opens_across_packages(tmp_path, writer, reader):
 
 
 def test_hnsw_index_raises(tmp_path):
+    """HNSW is ported now; the index type still refused on create is IVF."""
     p = zvec_tpu_torch
     schema = p.CollectionSchema(
-        "hnsw_col",
+        "ivf_col",
         vectors=[
             p.VectorSchema(
-                "emb", p.DataType.VECTOR_FP32, DIM, p.HnswIndexParam(p.MetricType.L2)
+                "emb", p.DataType.VECTOR_FP32, DIM, p.IVFIndexParam(p.MetricType.L2)
             )
         ],
     )
-    with pytest.raises(NotImplementedError, match="HNSW"):
+    with pytest.raises(NotImplementedError, match="IVF"):
         p.create_and_open(str(tmp_path / "h"), schema)
 
 
 def test_create_index_hnsw_and_jax_hnsw_collection_raise(tmp_path):
+    """HNSW is ported now; `create_index` with IVF, and an IVF collection
+    written by zvec_tpu, are what must still be refused."""
     col = _fill(zvec_tpu_torch, tmp_path / "t", optimize=False)
-    with pytest.raises(NotImplementedError, match="HNSW"):
-        col.create_index("emb", zvec_tpu_torch.HnswIndexParam(zvec_tpu_torch.MetricType.L2))
+    with pytest.raises(NotImplementedError, match="IVF"):
+        col.create_index("emb", zvec_tpu_torch.IVFIndexParam(zvec_tpu_torch.MetricType.L2))
     col._impl.close()
-    # an HNSW collection written by zvec_tpu is refused on open, not scanned flat
+    # an IVF collection written by zvec_tpu is refused on open, not scanned flat
     schema = zvec_tpu.CollectionSchema(
-        "hnsw_col",
+        "ivf_col",
         vectors=[
             zvec_tpu.VectorSchema(
                 "emb", zvec_tpu.DataType.VECTOR_FP32, DIM,
-                zvec_tpu.HnswIndexParam(zvec_tpu.MetricType.L2),
+                zvec_tpu.IVFIndexParam(zvec_tpu.MetricType.L2),
             )
         ],
     )
     jc = zvec_tpu.create_and_open(str(tmp_path / "j"), schema)
     jc.flush()
     jc._impl.close()
-    with pytest.raises(NotImplementedError, match="HNSW"):
+    with pytest.raises(NotImplementedError, match="IVF"):
         zvec_tpu_torch.open(str(tmp_path / "j"))
 
 
@@ -221,7 +224,8 @@ def test_sparse_field_and_multi_gpu_raise(tmp_path):
 def test_import_leaves_jax_out():
     code = (
         "import sys; import zvec_tpu_torch; import zvec_tpu_torch.core.flat; "
-        "import zvec_tpu_torch.ops.flat_scan; "
+        "import zvec_tpu_torch.ops.flat_scan; import zvec_tpu_torch.core.hnsw; "
+        "import zvec_tpu_torch.ops.hnsw; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zvec_tpu' or m.startswith('zvec_tpu.') or m == 'triton']; "
         "assert not bad, bad"

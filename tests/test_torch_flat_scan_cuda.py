@@ -90,6 +90,29 @@ def test_kernel_topk_128_and_empty_rows(cuda):
     assert (torch.sort(i, 1).values == torch.sort(pi, 1).values).all()
 
 
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+def test_kernel_hnsw_build_shape(cuda, metric):
+    """The HNSW build's scan (`ops/hnsw.py::knn_build_step`): Q = 2048 code
+    rows against the codes, topk = knn_k + 1 = 128, TILE_N = 1024."""
+    arrays, _ = _case("fp32", metric, n=16384, d=32, nq=1)
+    _, codes, norms, _ = _to(cuda, arrays)
+    q = codes[:2048].contiguous()
+    mask = torch.ones(16384, dtype=torch.int8, device=cuda)
+    kw = dict(metric=MetricType[metric], topk=128)
+    assert fs.pick_tile(16384, 128) == 1024
+    ks, ki = fs.flat_scan_stage1(q, codes, norms, mask, **kw)
+    ps, pi = fs.flat_scan_stage1(q, codes, norms, mask, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert ks.shape == (16, 128, 2048)
+    assert torch.allclose(ks, ps, rtol=1e-4, atol=1e-3)
+    assert float((ki != pi).float().mean()) <= 1e-3
+    fs_, fi = fs.flat_scan_topk(q, codes, norms, mask, **kw)
+    gs, gi = fs.flat_scan_topk_plain(q, codes, norms, mask, **kw)
+    assert (torch.sort(fi, 1).values == torch.sort(gi, 1).values).all()
+    assert torch.allclose(fs_, gs, rtol=1e-5, atol=1e-5)
+    assert (fi[:, 0] == torch.arange(2048, device=cuda)).all()  # each row finds itself
+
+
 def test_kernel_cosine_zero_norm_rows(cuda):
     arrays, kw = _case("fp32", "COSINE", n=2048, d=16, nq=3)
     q, codes, norms, mask = _to(cuda, arrays)

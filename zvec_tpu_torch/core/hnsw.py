@@ -1,0 +1,800 @@
+"""HNSW engine: batched exact kNN-graph build + batched beam search on the card.
+
+Port of `zvec_tpu/core/hnsw.py`. Reference behaviour reproduced
+(`src/core/algorithm/hnsw/`):
+  - level sampling: geometric with mult = 1/ln(M) (`hnsw_algorithm.h:51-80`)
+  - degrees: upper M, level-0 2*M (`hnsw_entity.h:519`)
+  - neighbour selection: best-first dominance prune plus reverse links
+    (`hnsw_algorithm.cc:394-510`)
+  - search: ef=1 greedy descent, beam at L0 with ef, filter applied at
+    result insert, scan budget = clamp(max_scan_ratio * N, 10000, N)
+    (`hnsw_algorithm.cc:83-278`, defaults `hnsw_entity.h:500-513`)
+  - brute force below the threshold (1000 docs, `hnsw_entity.h:511`)
+
+Build: every layer is an exact kNN graph. Layers of at most 8,192 rows build
+on the host in numpy; larger layers run per batch of rows on the device: the
+exact top-(knn_k+1) scan (the fused CUDA flat scan for knn_k <= 127) and the
+dominance prune, then reverse candidates on the host, then a merge prune per
+batch, then two random long links per node. The graph file
+(`hnsw_{field}.npz`) has the JAX package's format, so each package opens the
+other's graphs.
+
+Left out against the JAX engine: the mesh-sharded graphs, the clustered /
+NN-descent / int8-resident / bf16 builds and the legacy insertion build
+(`clustered_build=True` raises), routed traversal (an explicit
+`route_quantize` raises), bf16 search codes, the TPU lane padding of L0,
+in-beam group-by (`search_grouped` raises), the fused dense+sparse program,
+and the deprecated ZVEC_HNSW_* / ZVEC_BUILD_* environment overrides.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..model.param.param import HnswQueryParam, QueryParam
+from ..ops.hnsw import hnsw_search, knn_build_step, merge_prune_step
+from ..ops.quantize import (
+    decode,
+    encode,
+    mips_augment,
+    mips_augment_query,
+    train_quantizer,
+)
+from ..ops.runtime import bucket_queries, device, round_up
+from ..ops.topk import blockwise_topk_search
+from ..typing.enum import IndexType, MetricType, QuantizeType
+from .interface import VectorIndexEngine, register_engine, rescan_deficient
+from .refiner import refine
+
+__all__ = ["HnswEngine"]
+
+_MAX_SCAN_RATIO = 0.1  # kDefaultScanRatio
+_MIN_SCAN_LIMIT = 10000  # kDefaultMinScanLimit
+_ROW_ALIGN = 128
+_HOST_LAYER_MAX = 8192  # layers up to this many rows build on the host
+
+
+class _Graph:
+    """Host-side adjacency; device copies are derived from it."""
+
+    def __init__(self, n: int, m: int):
+        self.m = m
+        self.m0 = 2 * m
+        self.levels = np.zeros(n, dtype=np.int32)
+        self.l0 = np.full((n, self.m0), -1, dtype=np.int32)
+        # per upper level: ids, nbrs (rows into the same level), row_of (id -> row)
+        self.upper_ids: List[np.ndarray] = []
+        self.upper_nbrs: List[np.ndarray] = []
+        self.row_of: List[Dict[int, int]] = []
+        self.entry_point = -1
+        self.max_level = -1
+
+
+def _to_dev(a: np.ndarray, dev, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=dev, dtype=dtype) if dtype is not None else t.to(dev)
+
+
+@register_engine(IndexType.HNSW)
+class HnswEngine(VectorIndexEngine):
+    query_param_class = HnswQueryParam
+
+    def __init__(self, metric: MetricType, dimension: int, params=None):
+        super().__init__(metric, dimension, params)
+        self.m = params.m if params is not None else 50
+        self.ef_construction = params.ef_construction if params is not None else 500
+        # typed tuning knobs (reference `hnsw_params.h:22-80` analogs)
+        self.knn_k_cfg = getattr(params, "knn_k", None)
+        self.prune_alpha = float(getattr(params, "prune_alpha", 1.0) or 1.0)
+        self.backfill_alpha = float(getattr(params, "backfill_alpha", 0.0) or 0.0)
+        self.clustered_build = getattr(params, "clustered_build", None)
+        self.brute_force_threshold = int(
+            getattr(params, "brute_force_threshold", 1000) or 1000
+        )
+        self.max_scan_ratio_cfg = float(getattr(params, "max_scan_ratio", 0.0) or 0.0)
+        self.route_quantize = str(getattr(params, "route_quantize", "auto") or "auto")
+        self._search_metric = self.metric  # set per build (MIPS augments IP)
+        self._mips = False
+        self._mips_max_norm2 = 0.0
+        self._hamming = self.metric == MetricType.HAMMING  # packed bit codes
+        self.quantize = (
+            QuantizeType(params.quantize_type)
+            if params is not None
+            else QuantizeType.UNDEFINED
+        )
+        self._graph: Optional[_Graph] = None
+        self._n = 0
+        # device state
+        self._codes: Optional[torch.Tensor] = None
+        self._norms: Optional[torch.Tensor] = None
+        self._dequant = None
+        self._int4_packed = False
+        self._dev: Optional[Dict[str, Any]] = None  # device graph tensors
+        self._loaded_aux: Optional[Dict[str, np.ndarray]] = None
+        # seconds of the last graph build by phase, and of the last dump_aux
+        self.build_times: Dict[str, float] = {}
+
+    # ------------- build -------------
+    def _rebuild(self, data: np.ndarray) -> None:
+        if self._hamming:
+            # packed bit codes -> ±1 vectors: hamming = ||q - x||^2 / 4 on
+            # {±1}^D, so the graph builds and traverses in plain L2 space
+            from ..ops.quantize import bits_to_pm1, unpack_bits
+
+            data = bits_to_pm1(unpack_bits(np.ascontiguousarray(data), self.dimension))
+        else:
+            data = np.asarray(data, dtype=np.float32)
+        self._n = data.shape[0]
+        if self._n == 0:
+            self._dev = None
+            return
+        self._check_route()
+        # MIPS -> L2 augmentation: the graph is built and traversed in the
+        # augmented L2 space, where L2 ranking equals IP ranking (reference
+        # MipsConverter, `mips_converter.cc:657`); sims convert back at the end
+        self._mips = self.metric == MetricType.IP
+        self._search_metric = (
+            MetricType.L2 if (self._mips or self._hamming) else self.metric
+        )
+        if self._mips:
+            data, self._mips_max_norm2 = mips_augment(data)
+        n_pad = round_up(self._n, _ROW_ALIGN)
+
+        # graph first: its build buffers are freed before the search codes land
+        if (
+            self._loaded_aux is not None
+            and self._loaded_aux["n"] == self._n
+            and "shards" not in self._loaded_aux
+        ):
+            self._graph = _graph_from_aux(self._loaded_aux, self.m)
+        if self._graph is None or self._graph.levels.shape[0] != self._n:
+            self._graph = self._build_graph_knn(data)
+
+        codes_host, norms_host = self._storage_codes_host(data, n_pad)
+        dev = device()
+        self._codes = _to_dev(codes_host, dev)
+        self._norms = _to_dev(norms_host, dev, torch.float32)
+        self._dev = self._device_graph(self._graph, dev)
+
+    def _check_route(self) -> None:
+        """Routed traversal (a reduced-precision code tier for the beam's
+        gathers) is not ported: `auto` (off, as the JAX engine resolves it)
+        and `off` pass; an explicit int8 / bf16 tier raises. Quantized and
+        hamming indexes ignore the knob, as in the JAX engine."""
+        if self.quantize != QuantizeType.UNDEFINED or self._hamming:
+            return
+        if self.route_quantize in ("int8", "bf16"):
+            raise NotImplementedError(
+                f"route_quantize={self.route_quantize!r} (routed HNSW traversal) "
+                "is not supported by zvec_tpu_torch yet"
+            )
+
+    def _storage_codes_host(self, data: np.ndarray, n_pad: int):
+        """Host-side (codes (n_pad, Dc) in storage dtype, norms (n_pad,) f32).
+        Sets _dequant / _int4_packed. Search scores quantized
+        codes with the dequant folded into the dots."""
+        if self.quantize == QuantizeType.UNDEFINED:
+            padded = np.zeros((n_pad, data.shape[1]), np.float32)
+            padded[: self._n] = data
+            return padded, np.einsum("ij,ij->i", padded, padded)
+        cosine = self._search_metric == MetricType.COSINE
+
+        def _norm_rows(blk: np.ndarray) -> np.ndarray:
+            if not cosine:
+                return blk
+            nrm = np.linalg.norm(blk, axis=1, keepdims=True)
+            return blk / np.where(nrm > 0, nrm, 1.0)
+
+        CH = 1 << 20  # rows per encode chunk
+        if self.quantize in (QuantizeType.INT8, QuantizeType.INT4):
+            step = max(1, self._n // 1_000_000)
+            sample = _norm_rows(
+                np.ascontiguousarray(data[: self._n : step]).astype(np.float32)
+            )
+            qparams = train_quantizer(
+                sample, self.quantize,
+                symmetric=cosine and self.quantize == QuantizeType.INT8,
+            )
+            del sample
+            self._dequant = (
+                float(np.float32(qparams.scale)),
+                float(np.float32(qparams.bias)),
+            )
+            padded_c = np.zeros((n_pad, data.shape[1]), np.int8)
+            norms = np.zeros(n_pad, np.float32)
+            for lo in range(0, self._n, CH):
+                hi = min(lo + CH, self._n)
+                blk = _norm_rows(data[lo:hi].astype(np.float32))
+                padded_c[lo:hi] = encode(blk, self.quantize, qparams)
+                deq = decode(padded_c[lo:hi], qparams)
+                norms[lo:hi] = np.einsum("ij,ij->i", deq, deq)
+        else:
+            padded_c = np.zeros((n_pad, data.shape[1]), np.float16)
+            norms = np.zeros(n_pad, np.float32)
+            for lo in range(0, self._n, CH):
+                hi = min(lo + CH, self._n)
+                blk = _norm_rows(data[lo:hi].astype(np.float32))
+                padded_c[lo:hi] = blk.astype(np.float16)
+                deq = padded_c[lo:hi].astype(np.float32)
+                norms[lo:hi] = np.einsum("ij,ij->i", deq, deq)
+        if self.quantize == QuantizeType.INT4:
+            # nibble-packed residency (`integer_quantizer_converter.cc:596-607`)
+            from ..ops.quantize import pack_int4
+
+            padded_c = pack_int4(padded_c)
+            self._int4_packed = True
+        return padded_c, norms
+
+    def _device_graph(self, g: _Graph, dev) -> Dict[str, Any]:
+        upper_ids, upper_nbrs, upper_down = [], [], []
+        for lvl, ids in enumerate(g.upper_ids):
+            if lvl == 0:
+                down = ids  # level 1 drops to node ids at L0
+            else:
+                row_below = g.row_of[lvl - 1]
+                down = np.asarray([row_below[int(i)] for i in ids], dtype=np.int64)
+            upper_ids.append(_to_dev(ids, dev, torch.long))
+            upper_nbrs.append(_to_dev(g.upper_nbrs[lvl], dev, torch.long))
+            upper_down.append(_to_dev(down, dev, torch.long))
+        # entry rows per level: row of entry_point at each level (index L = top)
+        entry_rows = [max(g.entry_point, 0)] + [
+            g.row_of[lvl].get(int(g.entry_point), 0) for lvl in range(len(g.upper_ids))
+        ]
+        return {
+            "l0": _to_dev(g.l0, dev, torch.int32),
+            "upper_ids": upper_ids,
+            "upper_nbrs": upper_nbrs,
+            "upper_down": upper_down,
+            "entry_rows": entry_rows,
+            "num_levels": len(g.upper_ids),
+        }
+
+    def m0_out(self) -> int:
+        return 2 * self.m
+
+    def _sample_levels(self, n: int) -> _Graph:
+        """Level sampling + empty per-level structures (reference seeded
+        level draw, `hnsw_algorithm.cc` get_random_level)."""
+        g = _Graph(n, self.m)
+        rng = np.random.default_rng(0x5EED + n)
+        mult = 1.0 / np.log(self.m)
+        u = rng.random(n)
+        g.levels = np.minimum(
+            (-np.log(np.maximum(u, 1e-12)) * mult).astype(np.int32), 10
+        )
+        g.max_level = int(g.levels.max(initial=0))
+        for lvl in range(1, g.max_level + 1):
+            ids = np.nonzero(g.levels >= lvl)[0].astype(np.int32)
+            g.upper_ids.append(ids)
+            g.upper_nbrs.append(np.full((len(ids), self.m), -1, dtype=np.int32))
+            g.row_of.append({int(v): i for i, v in enumerate(ids)})
+        g.entry_point = int(g.upper_ids[-1][0]) if g.max_level >= 1 else 0
+        return g
+
+    def _build_graph_knn(self, data: np.ndarray) -> _Graph:
+        """Exact-kNN candidates + heuristic prune + reverse links per layer,
+        batched on the device; no sequential insertion. The reference's
+        graph comes from the sequential add loop (`hnsw_streamer.cc:506`)."""
+        if self.clustered_build is True:
+            raise NotImplementedError(
+                "clustered_build=True (the cluster-local HNSW build) is not "
+                "supported by zvec_tpu_torch yet"
+            )
+        n = data.shape[0]
+        g = self._sample_levels(n)
+        norms2 = (data.astype(np.float32) ** 2).sum(1)
+        self.build_times = {"forward_knn": 0.0, "reverse": 0.0, "merge": 0.0}
+        # candidate pool per node: the reference's efc (500 by default);
+        # past 400k rows it caps at 127 so the scan rides the fused kernel
+        g.l0 = self._knn_layer(
+            data, norms2, np.arange(n, dtype=np.int32), self.m0_out(),
+            knn_k=min(self.ef_construction, 512 if n <= 400_000 else 127, n - 1),
+            times=self.build_times,
+        )
+        t0 = time.perf_counter()
+        for li, members in enumerate(g.upper_ids):
+            mlen = len(members)
+            if mlen <= 1:
+                continue
+            g.upper_nbrs[li] = self._knn_layer(  # rows within the level
+                data[members], norms2[members].astype(np.float32),
+                np.arange(mlen, dtype=np.int32), self.m,
+                knn_k=min(self.ef_construction, 512, mlen - 1),
+            )
+        self.build_times["upper_levels"] = time.perf_counter() - t0
+        return g
+
+    def _knn_layer(
+        self,
+        data: np.ndarray,  # (n, d) layer codes (fp32, already MIPS-augmented)
+        norms2: np.ndarray,  # (n,)
+        node_rows: np.ndarray,  # (n,) row ids to emit (arange)
+        max_out: int,
+        *,
+        knn_k: int,
+        times: Optional[Dict[str, float]] = None,
+    ) -> np.ndarray:
+        """One graph layer: forward kNN + prune, reverse links, final
+        re-prune. Returns (n, max_out) int32 adjacency (row space of
+        `data`). `times`, when given, gains the seconds of each phase."""
+        n, d = data.shape
+        if self.knn_k_cfg:
+            knn_k = min(int(self.knn_k_cfg), self.ef_construction, n - 1)
+        if n <= _HOST_LAYER_MAX:
+            return self._knn_layer_host(data, norms2, max_out, knn_k=knn_k)
+        # the fused scan keeps topk <= 128 lanes; it wants N % 1024 == 0,
+        # the blockwise scan N divisible by its block
+        use_kernel = knn_k <= 127
+        n_pad = round_up(n, 1024 if (use_kernel or n <= 131072) else 131072)
+        dev = device()
+        codes_p = np.zeros((n_pad, d), np.float32)
+        codes_p[:n] = data
+        norms_p = np.zeros(n_pad, np.float32)
+        norms_p[:n] = norms2
+        mask_p = np.zeros(n_pad, np.int8)
+        mask_p[:n] = 1
+        codes_dev = _to_dev(codes_p, dev)
+        norms_dev = _to_dev(norms_p, dev)
+        mask_dev = _to_dev(mask_p, dev)
+        del codes_p
+
+        B = 2048 if knn_k <= 255 else 1024  # bounds the (B, C, C) prune buffer
+        if d >= 512:
+            B = min(B, 1024)  # the (B, C, D) candidate gathers grow with D
+        metric = self._search_metric
+        nb = (n + B - 1) // B
+        rows_mat = np.empty((nb, B), np.int64)
+        for bi, lo in enumerate(range(0, n, B)):
+            rows = node_rows[lo : lo + B]
+            if len(rows) < B:
+                rows = np.concatenate([rows, np.full(B - len(rows), rows[-1], np.int32)])
+            rows_mat[bi] = rows
+        rows_dev = _to_dev(rows_mat, dev)
+        kw = dict(metric=metric, max_out=max_out, alpha=self.prune_alpha,
+                  backfill_alpha=self.backfill_alpha)
+
+        # ---- forward pass: exact kNN + prune ----
+        t0 = time.perf_counter()
+        adj = torch.full((n, max_out), -1, dtype=torch.int32, device=dev)
+        for bi in range(nb):
+            knn_build_step(rows_dev[bi], codes_dev, norms_dev, mask_dev, adj,
+                           knn_k=knn_k, use_kernel=use_kernel, **kw)
+        fwd = adj.cpu().numpy()
+        del adj
+        t1 = time.perf_counter()
+
+        # ---- reverse candidates (host) + final device prune ----
+        cand = np.concatenate([fwd, _reverse_candidates(fwd, cap=max_out)], axis=1)
+        t2 = time.perf_counter()
+        adj2 = torch.full((n, max_out), -1, dtype=torch.int32, device=dev)
+        for bi in range(nb):
+            merge_prune_step(rows_dev[bi], _to_dev(cand[rows_mat[bi]], dev),
+                             codes_dev, norms_dev, adj2, **kw)
+        out = adj2.cpu().numpy()
+        t3 = time.perf_counter()
+        if times is not None:
+            times["forward_knn"] += t1 - t0
+            times["reverse"] += t2 - t1
+            times["merge"] += t3 - t2
+
+        # NSW-style long links: a kNN graph over well-separated clusters is
+        # disconnected; the last 2 slots hold random teleports, which score
+        # poorly, so the beam expands them only once its component is spent
+        if n > 2048 and max_out >= 16:
+            rng_ll = np.random.default_rng(0x10E6)
+            rand = (
+                np.arange(n, dtype=np.int64)[:, None] + rng_ll.integers(1, n, (n, 2))
+            ) % n
+            out[:, -2:] = rand.astype(np.int32)
+        return out
+
+    def _knn_layer_host(
+        self,
+        data: np.ndarray,
+        norms2: np.ndarray,
+        max_out: int,
+        *,
+        knn_k: int,
+    ) -> np.ndarray:
+        """Host-numpy twin of `_knn_layer` for small layers (n <= 8192):
+        exact kNN candidates, dominance prune + backfill, reverse links,
+        final merge re-prune."""
+        n = data.shape[0]
+        metric = self._search_metric
+        X = np.ascontiguousarray(data, dtype=np.float32)
+        nrm = norms2.astype(np.float32)
+        dots = X @ X.T
+        if metric == MetricType.IP:
+            S = dots
+        elif metric == MetricType.COSINE:
+            nn = np.sqrt(np.maximum(nrm, 0.0))
+            denom = np.outer(nn, nn)
+            S = np.divide(dots, denom, out=np.ones_like(dots), where=denom > 0)
+        else:
+            S = -(nrm[:, None] + nrm[None, :] - 2.0 * dots)
+        np.fill_diagonal(S, -np.inf)
+
+        k = int(max(1, min(knn_k, n - 1)))
+        if k >= n - 1:
+            cand = np.argsort(-S, axis=1)[:, : n - 1]
+        else:
+            part = np.argpartition(-S, k - 1, axis=1)[:, :k]
+            s = np.take_along_axis(S, part, 1)
+            cand = np.take_along_axis(part, np.argsort(-s, axis=1), 1)
+        fwd = _host_prune_compact(
+            X, S, cand.astype(np.int64), metric, max_out, self.prune_alpha,
+            self.backfill_alpha,
+        )
+        rev = _reverse_candidates(fwd, cap=max_out)
+        comb = np.concatenate([fwd, rev], axis=1).astype(np.int64)
+        # merge phase: re-sort desc by sim-to-base, dedup keep-first
+        valid = comb >= 0
+        safe = np.clip(comb, 0, None)
+        s2 = np.where(valid, np.take_along_axis(S, safe, 1), -np.inf)
+        o2 = np.argsort(-s2, axis=1, kind="stable")
+        comb = np.where(
+            np.take_along_axis(valid, o2, 1), np.take_along_axis(comb, o2, 1), -1
+        )
+        # duplicate ids (mutual fwd/rev edges): keep first occurrence only
+        eq = comb[:, :, None] == comb[:, None, :]
+        earlier = np.tril(np.ones((comb.shape[1], comb.shape[1]), bool), -1)
+        dup = (eq & earlier[None] & (comb[:, None, :] >= 0)).any(axis=2)
+        comb = np.where(dup, -1, comb)
+        return _host_prune_compact(
+            X, S, comb, metric, max_out, self.prune_alpha, self.backfill_alpha
+        )
+
+    # ------------- search -------------
+    def _search_impl(self, queries, topk, mask, param):
+        return self._search_finalize(self._search_dispatch(queries, topk, mask, param))
+
+    def _search_finalize(self, handle):
+        return handle()
+
+    def _search_dispatch(self, queries, topk, mask, param):
+        """Two-phase search (see VectorIndexEngine.search_async): the device
+        work (beam / exact scan) is enqueued here; the returned closure
+        fetches the result and runs host post-processing (filtered rescan,
+        refine, score conversions)."""
+        nq = queries.shape[0]
+        if self._n == 0:
+            out = (
+                np.full((nq, topk), -np.inf, np.float32),
+                np.full((nq, topk), -1, np.int64),
+            )
+            return lambda: out
+        q_norm2 = None
+        if self._mips:
+            q_norm2 = (queries.astype(np.float32) ** 2).sum(1)
+            queries = mips_augment_query(queries.astype(np.float32))
+        elif self._hamming:
+            from ..ops.quantize import bits_to_pm1, unpack_bits
+
+            queries = bits_to_pm1(unpack_bits(np.ascontiguousarray(queries), self.dimension))
+        ef = param.ef if isinstance(param, HnswQueryParam) else 500
+        quantized = self.quantize != QuantizeType.UNDEFINED
+        # refine-by-default on quantized indexes (reference full-precision
+        # refine block pairing, `segment.cc:1591-1700`)
+        use_refiner = quantized and (
+            param.refiner_enabled(True) if isinstance(param, QueryParam) else True
+        )
+        out_topk = topk
+        if use_refiner:
+            topk = min(topk * getattr(param, "refiner_scale_factor", 10), self._n)
+        ef = max(ef, topk)
+        is_linear = bool(param.is_linear) if isinstance(param, QueryParam) else False
+
+        nq_pad = bucket_queries(nq)
+        qpad = np.zeros((nq_pad, queries.shape[1]), np.float32)
+        qpad[:nq] = queries
+        dev = self._codes.device
+        q_dev = _to_dev(qpad, dev)
+        k = min(topk, self._n)
+
+        def full_mask():
+            fm = np.zeros(self._codes.shape[0], dtype=bool)
+            fm[: self._n] = True if mask is None else mask
+            return _to_dev(fm, dev)
+
+        def exact_scan(dmask):
+            return blockwise_topk_search(
+                q_dev, self._codes, self._search_metric, k, mask=dmask,
+                x_sq_norms=self._norms, dequant=self._dequant,
+                int4_packed=self._int4_packed,
+            )
+
+        if is_linear or self._n < self.brute_force_threshold:
+            dev_out = exact_scan(full_mask())
+
+            def collect():
+                return dev_out[0].cpu().numpy(), dev_out[1].cpu().numpy()
+        else:
+            knobs = self._query_knobs(param)
+            budget = min(max(_MIN_SCAN_LIMIT, int(knobs["scan_ratio"] * self._n)), self._n)
+            dmask = full_mask() if mask is not None else None
+            g = self._dev
+            dev_out = hnsw_search(
+                q_dev, self._codes, self._norms, g["l0"], g["upper_ids"],
+                g["upper_nbrs"], g["upper_down"], g["entry_rows"], dmask,
+                budget, self._dequant,
+                metric=self._search_metric,
+                ef=ef,
+                topk=k,
+                max_steps=ef + knobs["steps_slack"],
+                num_levels=g["num_levels"],
+                int4_packed=self._int4_packed,
+                frontier=knobs["frontier"],
+                # the exact visited bitset is n_pad/8 bytes per query; hash
+                # at scale (reference VisitFilter bitmap->bloom, `visit_filter.h:39`)
+                visited_bits=knobs["visited_bits"]
+                or (0 if self._codes.shape[0] <= (1 << 21) else 21),
+                visited_bytes=knobs["visited_bytes"],
+                approx_merge=knobs["approx_merge"],
+                done_frac=knobs["done_frac"],
+            )
+
+            def collect():
+                sims = dev_out[0][:nq].cpu().numpy()
+                idx = dev_out[1][:nq].cpu().numpy()
+                if mask is not None:
+                    # filtered-beam safety net: the ef-capped working set can
+                    # strand the beam with too few filtered hits (the
+                    # reference's candidate heap is unbounded); rescan those
+                    # rows exactly
+                    def rescan():
+                        s, i = exact_scan(dmask)
+                        return s.cpu().numpy(), i.cpu().numpy()
+
+                    sims, idx = rescan_deficient(sims, idx, k, mask, rescan)
+                return sims, idx
+
+        def finish():
+            sims, idx = collect()
+            sims, idx = sims[:nq], idx[:nq].astype(np.int64)  # drop bucket padding
+            out_k = topk
+            if use_refiner:
+                raw_q = queries[:, :-1] if self._mips else queries
+                sims, idx = refine(self._data_fn, raw_q, idx, self.metric, out_topk)
+                idx = idx.astype(np.int64)
+                out_k = out_topk
+            elif self._mips:
+                # augmented-L2 similarity -> inner product:
+                # -l2 = -(||q||^2 + M^2 - 2 ip)  =>  ip = (sim + ||q||^2 + M^2) / 2
+                sims = np.where(
+                    idx >= 0,
+                    (sims + q_norm2[:, None] + self._mips_max_norm2) / 2.0,
+                    sims,
+                )
+            elif self._hamming:
+                sims = sims * 0.25  # ±1 L2 similarity -> -hamming
+            if sims.shape[1] < out_k:
+                pad = out_k - sims.shape[1]
+                sims = np.pad(sims, ((0, 0), (0, pad)), constant_values=-np.inf)
+                idx = np.pad(idx, ((0, 0), (0, pad)), constant_values=-1)
+            sims = np.where(idx >= 0, sims, -np.inf)
+            radius = float(getattr(param, "radius", 0.0) or 0.0)
+            if radius > 0.0:
+                # range search: distance metrics keep score <= radius, IP >= radius
+                from ..ops.distance import similarity_to_score
+
+                scores = np.asarray(similarity_to_score(sims, self.metric))
+                ok = scores >= radius if self.metric == MetricType.IP else scores <= radius
+                sims = np.where(ok, sims, -np.inf)
+                idx = np.where(ok, idx, -1)
+            return sims, idx
+
+        return finish
+
+    def search_grouped(self, queries, mask, param, group_codes, group_topk,
+                       group_cap, group_key=None):
+        """In-beam group-by (the JAX engine's grouped beam) is not ported:
+        a group-by query on an HNSW field fails here rather than taking the
+        generic path."""
+        raise NotImplementedError(
+            "group-by on an HNSW field (the in-beam grouped search) is not "
+            "supported by zvec_tpu_torch yet"
+        )
+
+    def _query_knobs(self, param) -> Dict[str, Any]:
+        """Per-query beam knobs: typed HnswQueryParam field > index-param
+        default > engine default."""
+        qp = param if isinstance(param, HnswQueryParam) else None
+        return {
+            "frontier": (qp.frontier if qp is not None and qp.frontier else 0) or 4,
+            "steps_slack": qp.steps_slack if qp is not None else 64,
+            "visited_bits": qp.visited_bits if qp is not None else 0,
+            "visited_bytes": qp.visited_bytes if qp is not None else False,
+            "scan_ratio": (qp.max_scan_ratio if qp is not None else 0.0)
+            or self.max_scan_ratio_cfg
+            or _MAX_SCAN_RATIO,
+            "approx_merge": qp.approx_merge if qp is not None else False,
+            # 0.97: the JAX engine's measured default (HnswQueryParam docstring)
+            "done_frac": qp.done_frac if qp is not None else 0.97,
+        }
+
+    # ------------- persistence -------------
+    def dump_aux(self, directory: str, prefix: str) -> Dict[str, Any]:
+        g = self._graph
+        if g is None:
+            self._ensure_fresh()
+            g = self._graph
+        t0 = time.perf_counter()
+        fname = f"hnsw_{prefix}.npz"
+        payload = {
+            "n": np.int64(self._n),
+            "m": np.int64(self.m),
+            "levels": g.levels,
+            "l0": g.l0,
+            "entry_point": np.int64(g.entry_point),
+            "max_level": np.int64(g.max_level),
+        }
+        for lvl in range(len(g.upper_ids)):
+            payload[f"upper_ids_{lvl}"] = g.upper_ids[lvl]
+            payload[f"upper_nbrs_{lvl}"] = g.upper_nbrs[lvl]
+        np.savez_compressed(os.path.join(directory, fname), **payload)
+        self.build_times["dump_aux"] = time.perf_counter() - t0
+        return {"file": fname, "type": "hnsw", "m": self.m}
+
+    def load_aux(self, directory: str, descriptor: Dict[str, Any]) -> None:
+        path = os.path.join(directory, descriptor.get("file", ""))
+        if not os.path.exists(path):
+            return
+        self._loaded_aux = dict(np.load(path))
+
+
+def _graph_from_aux(aux: Dict[str, np.ndarray], m: int) -> _Graph:
+    n = int(aux["n"])
+    g = _Graph(n, int(aux.get("m", m)))
+    g.levels = aux["levels"]
+    g.l0 = aux["l0"]
+    g.entry_point = int(aux["entry_point"])
+    g.max_level = int(aux["max_level"])
+    lvl = 0
+    while f"upper_ids_{lvl}" in aux:
+        ids = aux[f"upper_ids_{lvl}"]
+        g.upper_ids.append(ids)
+        g.upper_nbrs.append(aux[f"upper_nbrs_{lvl}"])
+        g.row_of.append({int(v): i for i, v in enumerate(ids)})
+        lvl += 1
+    return g
+
+
+def _host_prune_compact(
+    X: np.ndarray,
+    S: np.ndarray,
+    cand: np.ndarray,  # (n, C) DESC-by-sim candidate rows, -1 pad
+    metric: MetricType,
+    max_out: int,
+    alpha: float = 1.0,
+    backfill_alpha: float = 0.0,
+) -> np.ndarray:
+    """Host twin of `prune_scored`'s dominance prune + backfill compact:
+    keep candidate i iff no already-kept j has sim(i, j) >= sim(i, base);
+    backfill the remaining slots with the best pruned candidates."""
+    n, C = cand.shape
+    out = np.full((n, max_out), -1, np.int32)
+    CH = max(64, int(2e8 // max(C * C * 4, 1)))  # ~200MB pair chunks
+    for lo in range(0, n, CH):
+        hi = min(lo + CH, n)
+        cb = cand[lo:hi]
+        valid = cb >= 0
+        safe = np.clip(cb, 0, None)
+        base_s = np.where(
+            valid, S[np.arange(lo, hi)[:, None], safe], -np.inf
+        ).astype(np.float32)
+        vecs = X[safe]  # (B, C, D)
+        pd = np.matmul(vecs, vecs.transpose(0, 2, 1))
+        if metric == MetricType.L2:
+            nr = (vecs.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+            pair = -(nr[:, :, None] + nr[:, None, :] - 2.0 * pd)
+        elif metric == MetricType.COSINE:
+            nn = np.sqrt(np.maximum((vecs**2).sum(-1), 0.0))
+            den = nn[:, :, None] * nn[:, None, :]
+            pair = np.divide(pd, den, out=np.ones_like(pd), where=den > 0)
+        else:
+            pair = pd
+        th = _host_thresh(base_s, metric, alpha)
+        keep = _host_keep(pair, th, valid, max_out)
+        if backfill_alpha:
+            pruned = valid & ~keep
+            keep2 = _host_keep(pair, _host_thresh(base_s, metric, backfill_alpha), pruned, max_out)
+            tier = np.where(keep, 0, np.where(keep2, 1, np.where(valid, 2, 3))).astype(np.int8)
+            last = 3
+        else:
+            tier = np.where(keep, 0, np.where(valid, 1, 2)).astype(np.int8)
+            last = 2
+        rank = np.argsort(tier, axis=1, kind="stable")
+        tier_c = np.take_along_axis(tier, rank, 1)[:, :max_out]
+        ids_c = np.take_along_axis(cb, rank, 1)[:, :max_out]
+        ids_c = np.where(tier_c < last, ids_c, -1)
+        out[lo:hi, : ids_c.shape[1]] = ids_c
+    return out
+
+
+def _host_thresh(base_s: np.ndarray, metric: MetricType, alpha: float) -> np.ndarray:
+    """Alpha-relaxed dominance threshold (host twin of ops.hnsw._prune_thresh)."""
+    if alpha == 1.0:
+        return base_s
+    if metric == MetricType.L2:
+        return base_s * np.float32(1.0 / (alpha * alpha))
+    if metric == MetricType.COSINE:
+        return (1.0 - (1.0 - base_s) / alpha).astype(np.float32)
+    return base_s
+
+
+def _host_keep(pair: np.ndarray, th: np.ndarray, valid: np.ndarray, max_out: int) -> np.ndarray:
+    """The naive best-first dominance walk over (B, C) candidates."""
+    b, C = valid.shape
+    keep = np.zeros((b, C), bool)
+    count = np.zeros(b, np.int32)
+    for i in range(C):
+        conflict = (keep & (pair[:, i, :] >= th[:, i, None])).any(axis=1)
+        good = valid[:, i] & ~conflict & (count < max_out)
+        keep[:, i] = good
+        count += good
+    return keep
+
+
+def _reverse_candidates(adj: np.ndarray, cap: int) -> np.ndarray:
+    """Reverse-edge candidates per node, capped (vectorized host pass): for
+    every forward edge u -> v, u becomes a candidate neighbour of v (the
+    batched analog of the reference's connect-back loop). Grouping by
+    destination is a scipy CSR->CSC conversion, a counting sort at memory
+    speed."""
+    n, m = adj.shape
+    try:
+        from scipy import sparse as _sp
+    except ImportError:
+        _sp = None
+    if _sp is None or n * m == 0:
+        return _reverse_candidates_argsort(adj, cap)
+    src_all = np.repeat(np.arange(n, dtype=np.int32), m)
+    dst = adj.reshape(-1)
+    ok = dst >= 0
+    dst = dst[ok].astype(np.int32, copy=False)
+    src = src_all[ok]
+    if len(src) == 0:
+        return np.full((n, cap), -1, np.int32)
+    row_counts = ok.reshape(n, m).sum(axis=1)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(row_counts, out=indptr[1:])
+    # CSR (row=src, col=dst, data=src+1) -> CSC groups data by dst, keeping
+    # src order within each group (the order the argsort twin gives)
+    csc = _sp.csr_matrix((src + 1, dst, indptr), shape=(n, n)).tocsc()
+    data = csc.data
+    e = len(data)
+    idx_t = np.int32 if e < np.iinfo(np.int32).max - cap else np.int64
+    starts = csc.indptr[:-1].astype(idx_t, copy=False)
+    counts = np.diff(csc.indptr).astype(np.int32, copy=False)
+    take = starts[:, None] + np.arange(cap, dtype=idx_t)[None, :]
+    np.minimum(take, idx_t(e - 1), out=take)
+    gathered = data[take]
+    validm = np.arange(cap, dtype=np.int32)[None, :] < counts[:, None]
+    return np.where(validm, gathered - 1, -1).astype(np.int32, copy=False)
+
+
+def _reverse_candidates_argsort(adj: np.ndarray, cap: int) -> np.ndarray:
+    """Pure-numpy twin of `_reverse_candidates` (no scipy)."""
+    n, m = adj.shape
+    dst = adj.reshape(-1)
+    src = np.repeat(np.arange(n, dtype=np.int32), m)
+    ok = dst >= 0
+    dst = dst[ok]
+    src = src[ok]
+    order = np.argsort(dst, kind="stable")
+    dst = dst[order]
+    src = src[order]
+    bounds = np.searchsorted(dst, np.arange(n + 1, dtype=np.int64))
+    starts, ends = bounds[:-1], bounds[1:]
+    counts = np.minimum(ends - starts, cap)
+    take = starts[:, None] + np.arange(cap)[None, :]
+    validm = np.arange(cap)[None, :] < counts[:, None]
+    take = np.clip(take, 0, max(len(src) - 1, 0))
+    if len(src) == 0:
+        return np.full((n, cap), -1, np.int32)
+    return np.where(validm, src[take], -1).astype(np.int32)

@@ -299,12 +299,8 @@ def create_engine(
     """Factory: engine from index params (string-keyed plugin registry in the
     reference; enum-keyed here)."""
     # Imports deferred to avoid import cycles; importing registers the engines.
-    from . import flat  # noqa: F401
+    from . import flat, hnsw  # noqa: F401
 
-    try:
-        from . import hnsw  # noqa: F401
-    except ImportError:
-        pass
     try:
         from . import ivf  # noqa: F401
     except ImportError:

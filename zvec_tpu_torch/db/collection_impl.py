@@ -44,8 +44,8 @@ _LOCK_FILE = ".lock"
 
 
 def _require_ported(vectors) -> None:
-    """Only dense FLAT fields have engines in this package so far: an HNSW
-    or IVF index, or a sparse field, fails here instead of scanning flat."""
+    """Only dense FLAT and HNSW fields have engines in this package so far:
+    an IVF index, or a sparse field, fails here instead of scanning flat."""
     from ..typing.enum import IndexType
 
     for vs in vectors:
@@ -55,7 +55,7 @@ def _require_ported(vectors) -> None:
                 "zvec_tpu_torch yet"
             )
         itype = IndexType(vs.index_param.index_type)
-        if itype != IndexType.FLAT:
+        if itype not in (IndexType.FLAT, IndexType.HNSW):
             raise NotImplementedError(
                 f"{itype.name} index on field '{vs.name}' is not supported by "
                 "zvec_tpu_torch yet"

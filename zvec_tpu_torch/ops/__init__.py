@@ -1,8 +1,9 @@
 """Device compute layer: PyTorch tensor code and the hand-written CUDA scan.
 
-`distance` and `topk` are the torch forms of the JAX package's XLA programs;
-`flat_scan` holds the fused group-max scan kernel (`csrc/flat_scan.cu`) that
-replaces the Pallas kernel of `zvec_tpu/ops/flat_pallas.py`.
+`distance`, `topk` and `hnsw` (the HNSW beam and build steps) are the torch
+forms of the JAX package's XLA programs; `flat_scan` holds the fused
+group-max scan kernel (`csrc/flat_scan.cu`) that replaces the Pallas kernel
+of `zvec_tpu/ops/flat_pallas.py`.
 """
 
 from .distance import (

@@ -1,0 +1,556 @@
+"""HNSW device ops in PyTorch: batched greedy descent + L0 beam search, and
+the batched kNN-graph build steps (forward kNN + prune, merge + prune).
+
+Port of `zvec_tpu/ops/hnsw.py`. Queries run in lockstep batches; each beam
+step gathers the padded neighbour lists of F frontier nodes per query, scores
+them in one batched product, tests and sets a visited set, and folds the
+results into the running top-ef with `topk_desc` (lower index first on ties,
+the order `lax.top_k` gives, so both packages traverse alike). The JAX
+`lax.while_loop` becomes a Python loop whose condition costs one host sync per
+step. Filtered-search semantics match the reference: filtered nodes are
+traversed but never enter the result set (`hnsw_algorithm.cc:188-195,270`).
+
+The build's forward kNN pass scores every batch with the fused flat scan
+(`ops/flat_scan.py::flat_scan_topk`, the CUDA kernel on the card) for
+knn_k <= 127, and with the exact blockwise torch scan above that.
+
+Graph layout (tensors on one device):
+  codes      (N_pad, D)          vectors (f32 / f16 / int8 / packed int4)
+  l0_nbrs    (N_pad, M0) int32   level-0 adjacency, -1 padded
+  per upper level l >= 1 (compact arrays over the N_l member nodes):
+    ids_l    (N_l,)  int64       member node ids (row -> id)
+    nbrs_l   (N_l, Mu) int64     adjacency as rows into level l, -1 padded
+    down_l   (N_l,)  int64       row of the same node in level l-1
+                                 (level 1's down_l is the node id itself)
+
+Left out against the JAX module: the bf16 hi/lo product splits (an MXU pass
+trick; products here are full float32, TF32 off), `approx_max_k` (accepted
+and run exact), the grouped beam, the routed refine tier, and the packed D2H
+transfer (`hnsw_search_packed`, a TPU workaround: this returns tensors).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from ..typing.enum import MetricType
+from .distance import unpack_nibbles
+from .runtime import NEG_INF, topk_desc
+
+__all__ = [
+    "hnsw_search",
+    "prune_scored",
+    "knn_build_step",
+    "merge_prune_step",
+]
+
+_HASH_MULT = 2654435761  # Knuth multiplicative hash of the visited index
+_SORT_SENTINEL = 2**30  # dedup key of invalid lanes: sorts after every real key
+# bit i of an int32 visited word; bit 31 is the sign bit
+_BITS = [1 << i for i in range(31)] + [-(1 << 31)]
+
+
+def _exact_dots(subscripts, a, b):
+    """Float32 products (TF32 is off, `ops/runtime.py`). int8 x int8 codes
+    are exact here too: |dot| <= D * 127^2 < 2^24 up to D = 1024."""
+    return torch.einsum(subscripts, a.float(), b.float())
+
+
+def _batched_sims(q, vecs, metric, norms=None, dequant=None, int4_packed=False):
+    """q: (Q, D); vecs: (Q, M, D) -> (Q, M) similarity (larger = closer).
+
+    `dequant=(scale, bias)` dequantizes gathered integer codes on the fly:
+    dot(q, s*c + b) = s*dot(q, c) + b*sum(q). `int4_packed`: vecs holds two
+    int4 codes per byte ((Q, M, ceil(D/2)) int8); the dot splits into the
+    even / odd nibble planes."""
+    if int4_packed:
+        lo, hi = unpack_nibbles(vecs)
+        d2 = vecs.shape[-1]
+        q_even = q[:, 0 : 2 * d2 : 2]
+        q_odd = q[:, 1 : 2 * d2 : 2]
+        if q_odd.shape[1] < d2:
+            q_odd = torch.nn.functional.pad(q_odd, (0, d2 - q_odd.shape[1]))
+        dots = _exact_dots("qd,qmd->qm", q_even, lo) + _exact_dots("qd,qmd->qm", q_odd, hi)
+        if dequant is not None:
+            dots = dequant[0] * dots + dequant[1] * q.sum(-1, keepdim=True)
+        return _sims_from_dots(q, dots, metric, norms)
+    dots = _exact_dots("qd,qmd->qm", q, vecs)
+    if dequant is not None:
+        dots = dequant[0] * dots + dequant[1] * q.sum(-1, keepdim=True)
+    return _sims_from_dots(q, dots, metric, norms)
+
+
+def _sims_from_dots(q, dots, metric, norms):
+    if metric == MetricType.IP:
+        return dots
+    if metric == MetricType.L2:
+        q_sq = (q * q).sum(-1, keepdim=True)
+        return -(q_sq + norms - 2.0 * dots)
+    if metric == MetricType.COSINE:
+        q_n = torch.sqrt((q * q).sum(-1, keepdim=True))
+        denom = q_n * torch.sqrt(norms)
+        return torch.where(denom > 0, dots / torch.where(denom > 0, denom, 1.0), 1.0)
+    raise ValueError(f"unsupported metric {metric}")
+
+
+def _visit_index(ids, visited_bits: int):
+    """Node ids -> visited-set positions. visited_bits=0 keeps the exact
+    id-indexed set; > 0 hashes into 2**visited_bits slots (the uint32
+    product of the JAX code, taken mod 2^32 by the mask)."""
+    if visited_bits <= 0:
+        return ids
+    return (ids * _HASH_MULT) & ((1 << visited_bits) - 1)
+
+
+def _shift_dup(x):
+    """True where an entry equals its left neighbour along dim 1."""
+    dup = torch.zeros_like(x, dtype=torch.bool)
+    dup[:, 1:] = x[:, 1:] == x[:, :-1]
+    return dup
+
+
+def hnsw_search(
+    q: torch.Tensor,  # (Q, D) f32
+    codes: torch.Tensor,  # (N_pad, D)
+    norms: torch.Tensor,  # (N_pad,)
+    l0_nbrs: torch.Tensor,  # (N_pad, M0)
+    upper_ids: Sequence[torch.Tensor],  # per level 1..L: (N_l,)
+    upper_nbrs: Sequence[torch.Tensor],  # per level 1..L: (N_l, Mu)
+    upper_down: Sequence[torch.Tensor],  # per level 1..L: (N_l,)
+    entry_rows: Sequence[int],  # (L+1,) entry row per level (row at top used)
+    mask: Optional[torch.Tensor],  # (N_pad,) bool result filter or None
+    scan_budget: int,
+    dequant=None,
+    *,
+    metric: MetricType,
+    ef: int,
+    topk: int,
+    max_steps: int,
+    num_levels: int,
+    frontier: int = 1,
+    int4_packed: bool = False,
+    visited_bits: int = 0,
+    visited_bytes: bool = False,
+    approx_merge: bool = False,  # accepted; the merges always run exact
+    done_frac: float = 1.0,
+):
+    """Batched HNSW search (`_beam_core` + `hnsw_search` of the JAX module).
+    Returns (sims (Q, topk) desc, ids (Q, topk) int64, -1 pad).
+
+    visited_bytes=True keeps the (hashed) visited set as a byte map: a set
+    is duplicate-safe, so the per-step dedup sort is elided and a
+    within-step duplicate may be scored twice (its copies are nulled after
+    the merge). done_frac < 1.0 stops the batch once that fraction of
+    queries has terminated; a cut-off query keeps the best it has found."""
+    del approx_merge
+    nq = q.shape[0]
+    dev = codes.device
+    q = q.float()
+
+    def sims_of(ids):
+        return _batched_sims(q, codes[ids], metric, norms[ids], dequant, int4_packed)
+
+    # ---- greedy descent through the upper levels (ef = 1) ----
+    if num_levels > 0:
+        cur_row = torch.full((nq,), int(entry_rows[num_levels]), dtype=torch.long, device=dev)
+        for lvl in range(num_levels - 1, -1, -1):
+            ids_l, nbrs_l = upper_ids[lvl], upper_nbrs[lvl]
+            cur_sim = sims_of(ids_l[cur_row][:, None])[:, 0]
+            while True:
+                nrows = nbrs_l[cur_row]  # (Q, Mu)
+                sims = sims_of(ids_l[nrows.clamp_min(0)])
+                sims = torch.where(nrows >= 0, sims, NEG_INF)
+                best = sims.argmax(dim=1, keepdim=True)  # first max, as jnp.argmax
+                best_sim = sims.gather(1, best)[:, 0]
+                better = best_sim > cur_sim
+                cur_row = torch.where(better, nrows.gather(1, best)[:, 0], cur_row)
+                cur_sim = torch.where(better, best_sim, cur_sim)
+                if not bool(better.any()):
+                    break
+            cur_row = upper_down[lvl][cur_row]  # drop to the next level's rows
+        entry_ids = cur_row  # level-1 down rows are node ids at level 0
+    else:
+        entry_ids = torch.full((nq,), int(entry_rows[0]), dtype=torch.long, device=dev)
+
+    # ---- level-0 beam ----
+    n_pad = codes.shape[0]
+    nbits = n_pad if visited_bits <= 0 else (1 << visited_bits)
+    words = (nbits + 31) // 32
+    entry_sim = sims_of(entry_ids[:, None])[:, 0]
+
+    # The working result set is ef wide. Unfiltered with ef >= topk it is
+    # the candidate set itself (both are the running top-ef of every scored
+    # node), so the result merge is elided.
+    kw = max(ef, topk)
+    track_res = mask is not None or topk > ef
+    if track_res:
+        entry_ok = mask[entry_ids] if mask is not None else torch.ones(nq, dtype=torch.bool, device=dev)
+        res_s = torch.full((nq, kw), NEG_INF, dtype=torch.float32, device=dev)
+        res_i = torch.full((nq, kw), -1, dtype=torch.long, device=dev)
+        res_s[:, 0] = torch.where(entry_ok, entry_sim, NEG_INF)
+        res_i[:, 0] = torch.where(entry_ok, entry_ids, -1)
+    cand_s = torch.full((nq, ef), NEG_INF, dtype=torch.float32, device=dev)
+    cand_i = torch.full((nq, ef), -1, dtype=torch.long, device=dev)
+    cand_s[:, 0] = entry_sim
+    cand_i[:, 0] = entry_ids
+    cand_x = torch.zeros((nq, ef), dtype=torch.bool, device=dev)  # expanded flags
+
+    use_bytes = visited_bytes and visited_bits > 0
+    qrows = torch.arange(nq, device=dev)
+    entry_vix = _visit_index(entry_ids, visited_bits)
+    if use_bytes:
+        # one extra column takes the writes of lanes that are not fresh
+        visited = torch.zeros((nq, nbits + 1), dtype=torch.bool, device=dev)
+        visited[qrows, entry_vix] = True
+    else:
+        bits = torch.tensor(_BITS, dtype=torch.int32, device=dev)
+        visited = torch.zeros((nq, words), dtype=torch.int32, device=dev)
+        visited[qrows, entry_vix >> 5] = bits[entry_vix & 31]
+    scanned = torch.ones(nq, dtype=torch.int32, device=dev)
+    done = torch.zeros(nq, dtype=torch.bool, device=dev)
+    min_done = nq if done_frac >= 1.0 else min(nq, int(math.ceil(done_frac * nq)))
+
+    step = 0
+    while step < max_steps and int(done.sum()) < min_done:
+        # 1. the F best unexpanded candidates per query
+        avail = ~cand_x & (cand_i >= 0)
+        f_sims, f_pos = topk_desc(torch.where(avail, cand_s, NEG_INF), frontier)
+        f_ids = cand_i.gather(1, f_pos)
+        f_ok = f_sims > NEG_INF / 2
+
+        # 2. termination: candidates exhausted, best candidate cannot beat
+        #    the worst result when full, or scan budget hit
+        if track_res:
+            res_min, res_full = res_s[:, -1], res_i[:, -1] >= 0
+        else:
+            res_min, res_full = cand_s[:, -1], cand_i[:, -1] >= 0
+        done = done | ~avail.any(dim=1) | (res_full & (f_sims[:, 0] < res_min)) | (scanned >= scan_budget)
+        active = ~done
+
+        # 3. mark the chosen candidates expanded
+        chosen = torch.zeros_like(cand_x).scatter_(1, f_pos, f_ok)
+        cand_x = cand_x | (chosen & active[:, None])
+
+        # 4. gather neighbour ids (Q, F*M0)
+        nbrs3 = l0_nbrs[f_ids.clamp_min(0)]  # (Q, F, M0)
+        valid = ((nbrs3 >= 0) & f_ok[:, :, None]).reshape(nq, -1) & active[:, None]
+        nbrs_safe = nbrs3.reshape(nq, -1).long().clamp_min(0)
+        vix = _visit_index(nbrs_safe, visited_bits)
+
+        # 5. visited test + set
+        if use_bytes:
+            fresh = valid & ~visited.gather(1, vix)
+            visited.scatter_(1, torch.where(fresh, vix, nbits), True)
+        else:
+            if frontier > 1 or visited_bits > 0:
+                # intra-step dedup on the visit index (two frontier nodes may
+                # share a neighbour; hashed collisions collapse too): one
+                # stable sort, and everything downstream stays in sorted order
+                key = torch.where(valid, vix, _SORT_SENTINEL)
+                key_sorted, order = torch.sort(key, dim=1, stable=True)
+                nbrs_safe = nbrs_safe.gather(1, order)
+                valid = (key_sorted < _SORT_SENTINEL) & ~_shift_dup(key_sorted)
+                vix = torch.where(valid, key_sorted, _visit_index(nbrs_safe, visited_bits))
+            word_idx = vix >> 5
+            bit = bits[vix & 31]
+            fresh = valid & ((visited.gather(1, word_idx) & bit) == 0)
+            # unique fresh bits: scatter-add acts as scatter-or
+            visited.scatter_add_(1, word_idx, torch.where(fresh, bit, 0))
+
+        # 6. score every neighbour, keep the fresh ones
+        sims = torch.where(fresh, sims_of(nbrs_safe), NEG_INF)
+        scanned = scanned + fresh.sum(dim=1, dtype=torch.int32)
+
+        # 7. merge into the candidate set (traversal is unfiltered)
+        all_s = torch.cat([cand_s, sims], dim=1)
+        all_i = torch.cat([cand_i, torch.where(fresh, nbrs_safe, -1)], dim=1)
+        all_x = torch.cat([cand_x, torch.zeros_like(fresh)], dim=1)
+        new_s, sel = topk_desc(all_s, ef)
+        new_i = all_i.gather(1, sel)
+        new_x = all_x.gather(1, sel)
+        if use_bytes:
+            # a within-step duplicate reaches the merge as an equal-sim copy,
+            # placed next to its twin; null the repeats
+            dup = _shift_dup(new_i) & (new_i >= 0)
+            new_s = torch.where(dup, NEG_INF, new_s)
+            new_i = torch.where(dup, -1, new_i)
+            new_x = new_x & ~dup
+        act = active[:, None]
+        cand_s = torch.where(act, new_s, cand_s)
+        cand_i = torch.where(act, new_i, cand_i)
+        cand_x = torch.where(act, new_x, cand_x)
+
+        # 8. merge into the results (filter applied at insert)
+        if track_res:
+            rsims = torch.where(mask[nbrs_safe] & fresh, sims, NEG_INF) if mask is not None else sims
+            rids = torch.where(rsims > NEG_INF / 2, nbrs_safe, -1)
+            nr_s, rsel = topk_desc(torch.cat([res_s, rsims], dim=1), kw)
+            nr_i = torch.cat([res_i, rids], dim=1).gather(1, rsel)
+            if use_bytes:
+                rdup = _shift_dup(nr_i) & (nr_i >= 0)
+                nr_s = torch.where(rdup, NEG_INF, nr_s)
+                nr_i = torch.where(rdup, -1, nr_i)
+            res_s = torch.where(act, nr_s, res_s)
+            res_i = torch.where(act, nr_i, res_i)
+        step += 1
+
+    hnsw_search.last_steps = step
+    if not track_res:
+        res_s, res_i = cand_s, cand_i
+    res_s, res_i = res_s[:, :topk], res_i[:, :topk]
+    res_i = torch.where(res_s > NEG_INF / 2, res_i, -1)
+    return res_s, res_i
+
+
+hnsw_search.last_steps = 0  # beam steps the last call ran (one host sync each)
+
+
+# ---------------------------------------------------------------------------
+# Batched kNN-graph construction: exact kNN candidate lists + the reference's
+# heuristic prune, every node in parallel (the GPU-literature recipe,
+# CAGRA/GGNN), then reverse links and a final merge prune.
+# ---------------------------------------------------------------------------
+
+
+def _prune_thresh(cand_sims, metric, alpha: float = 1.0):
+    """Dominance threshold per candidate, with the optional Vamana-style
+    alpha relaxation: candidate i conflicts with kept j iff
+    d(i, j) <= d(i, base) / alpha. L2 sims are -d^2 (scale 1/alpha^2);
+    COSINE sims are cos (1 - cos transforms affinely); IP ignores alpha."""
+    if alpha == 1.0:
+        return cand_sims
+    if metric == MetricType.L2:
+        return cand_sims * (1.0 / (alpha * alpha))
+    if metric == MetricType.COSINE:
+        return 1.0 - (1.0 - cand_sims) / alpha
+    return cand_sims
+
+
+def _prune_keep(
+    pair, cand_sims, cand_valid, max_out: int, chunk: int = 8, metric=None,
+    alpha: float = 1.0,
+):
+    """Keep candidate i (desc-sim order) iff no already-kept j dominates it
+    (sim(i, j) >= thresh(i)); stop at max_out (reference `update_neighbors`,
+    `hnsw_algorithm.cc:394-430`).
+
+    Block-sequential: conflicts against earlier blocks' keeps collapse into
+    one (B, G, C) test per block of `chunk` candidates, and the G decisions
+    inside a block run one by one. Keeps are identical to the naive
+    per-candidate walk."""
+    thresh = _prune_thresh(cand_sims, metric, alpha) if metric is not None else cand_sims
+    b, c = cand_sims.shape
+    pad = (-c) % chunk
+    if pad:
+        pair = torch.nn.functional.pad(pair, (0, pad, 0, pad), value=NEG_INF)
+        thresh = torch.nn.functional.pad(thresh, (0, pad), value=NEG_INF)
+        cand_valid = torch.cat([cand_valid, cand_valid.new_zeros((b, pad))], dim=1)
+    keep = torch.zeros((b, c + pad), dtype=torch.bool, device=cand_sims.device)
+    count = torch.zeros(b, dtype=torch.int32, device=cand_sims.device)
+    for lo in range(0, c + pad, chunk):
+        hi = lo + chunk
+        pair_blk = pair[:, lo:hi, :]  # (B, G, C)
+        pair_intra = pair_blk[:, :, lo:hi]  # (B, G, G)
+        th_blk = thresh[:, lo:hi]
+        # conflicts with every candidate kept in EARLIER blocks (this
+        # block's keeps are still False here)
+        conf = (keep[:, None, :] & (pair_blk >= th_blk[:, :, None])).any(dim=2)
+        for g in range(chunk):
+            good = cand_valid[:, lo + g] & ~conf[:, g] & (count < max_out)
+            keep[:, lo + g] = good
+            count += good
+            # a kept g dominates any later i of this block with
+            # sim(i, g) >= thresh(i)
+            conf = conf | (good[:, None] & (pair_intra[:, :, g] >= th_blk))
+    return keep[:, :c]
+
+
+def _pairwise_sims(vecs, norms2, metric):
+    """vecs (B, C, D), norms2 (B, C) -> (B, C, C) similarity."""
+    dots = _exact_dots("bcd,bed->bce", vecs, vecs)
+    if metric == MetricType.IP:
+        return dots
+    if metric == MetricType.L2:
+        return -(norms2[:, :, None] + norms2[:, None, :] - 2.0 * dots)
+    if metric == MetricType.COSINE:
+        nn = torch.sqrt(norms2)
+        denom = nn[:, :, None] * nn[:, None, :]
+        return torch.where(denom > 0, dots / torch.where(denom > 0, denom, 1.0), 1.0)
+    raise ValueError(f"unsupported metric {metric}")
+
+
+def _stable_rank(tier):
+    """Positions sorted by tier, ties in original order (jnp.argsort stable)."""
+    return torch.sort(tier, dim=1, stable=True).indices
+
+
+def _compact_keep(keep, ids, sims, max_out: int):
+    """Compact kept candidates (desc-sim order preserved) to (B, max_out)."""
+    rank = _stable_rank((~keep).to(torch.uint8))  # kept first, order-stable
+    ids_c = torch.where(keep, ids, -1).gather(1, rank)[:, :max_out]
+    sims_c = torch.where(keep, sims, NEG_INF).gather(1, rank)[:, :max_out]
+    return ids_c, sims_c
+
+
+def _compact_keep_backfill(
+    keep, valid, ids, sims, max_out: int,
+    pair=None, metric=None, backfill_alpha: float = 0.0,
+):
+    """Compact kept candidates, then backfill the remaining slots with the
+    best dominance-pruned (but valid) candidates (hnswlib's
+    keepPrunedConnections). backfill_alpha > 0 inserts a second,
+    alpha-relaxed prune round over the pruned pool whose survivors rank
+    ahead of the rest."""
+    if backfill_alpha and pair is not None:
+        pruned = valid & ~keep
+        keep2 = _prune_keep(
+            pair, torch.where(pruned, sims, NEG_INF), pruned, max_out,
+            metric=metric, alpha=backfill_alpha,
+        )
+        tier = torch.where(keep, 0, torch.where(keep2, 1, torch.where(valid, 2, 3)))
+        last = 3
+    else:
+        tier = torch.where(keep, 0, torch.where(valid, 1, 2))
+        last = 2
+    tier = tier.to(torch.int8)
+    rank = _stable_rank(tier)
+    tier_c = tier.gather(1, rank)[:, :max_out]
+    ids_c = ids.gather(1, rank)[:, :max_out]
+    sims_c = sims.gather(1, rank)[:, :max_out]
+    ids_c = torch.where(tier_c < last, ids_c, -1)
+    sims_c = torch.where(tier_c < last, sims_c, NEG_INF)
+    return ids_c, sims_c
+
+
+def _dup_mask(ids):
+    """(B, C) ids (any order) -> True at every occurrence AFTER the first of
+    a repeated id."""
+    order = torch.sort(ids, dim=1, stable=True).indices
+    dup_sorted = _shift_dup(ids.gather(1, order))
+    return torch.empty_like(dup_sorted).scatter_(1, order, dup_sorted)
+
+
+def _sim_to_base(base, bnorm2, vecs, nrm2, metric):
+    """sim(base_b, cand_bc): base (B, D), vecs (B, C, D) -> (B, C)."""
+    dots = _exact_dots("bd,bcd->bc", base, vecs)
+    if metric == MetricType.IP:
+        return dots
+    if metric == MetricType.L2:
+        return -(bnorm2[:, None] + nrm2 - 2.0 * dots)
+    if metric == MetricType.COSINE:
+        denom = torch.sqrt(bnorm2)[:, None] * torch.sqrt(nrm2)
+        return torch.where(denom > 0, dots / torch.where(denom > 0, denom, 1.0), 1.0)
+    raise ValueError(f"unsupported metric {metric}")
+
+
+def _pad_cols(ids, width):
+    if ids.shape[1] < width:  # fewer candidates than out-degree
+        ids = torch.nn.functional.pad(ids, (0, width - ids.shape[1]), value=-1)
+    return ids
+
+
+def prune_scored(
+    rows,  # (B,) base node rows
+    cand_ids,  # (B, C) candidate rows, DESC by sim, -1 pad
+    cand_sims,  # (B, C) similarity to base
+    codes,  # (N_pad, D)
+    norms2,  # (N_pad,) squared norms
+    *,
+    metric: MetricType,
+    max_out: int,
+    alpha: float = 1.0,
+    backfill_alpha: float = 0.0,
+):
+    """Heuristic prune of pre-scored desc-sorted candidates -> (B, max_out)
+    ids (-1 pad). Self / duplicate candidates fall to the dominance rule."""
+    valid = (cand_ids >= 0) & (cand_ids != rows[:, None])
+    safe = cand_ids.clamp_min(0)
+    pair = _pairwise_sims(codes[safe], norms2[safe], metric)
+    sims = torch.where(valid, cand_sims, NEG_INF)
+    keep = _prune_keep(pair, sims, valid, max_out, metric=metric, alpha=alpha)
+    ids_c, _ = _compact_keep_backfill(
+        keep, valid, cand_ids, sims, max_out,
+        pair=pair, metric=metric, backfill_alpha=backfill_alpha,
+    )
+    return _pad_cols(ids_c, max_out)
+
+
+def knn_build_step(
+    rows,  # (B,) node rows of this batch (pad = repeat a real row)
+    codes,  # (N_pad, D) f32, N_pad % 1024 == 0
+    norms2,  # (N_pad,) squared norms (f32)
+    mask,  # (N_pad,) int8, 1 = real row
+    adj,  # (N, max_out) int32 adjacency, updated in place
+    *,
+    metric: MetricType,
+    knn_k: int,
+    max_out: int,
+    use_kernel: bool = True,
+    alpha: float = 1.0,
+    backfill_alpha: float = 0.0,
+):
+    """One build batch: exact top-(knn_k+1) scan for the batch's nodes
+    (self-matches included; the prune drops them), heuristic prune to
+    max_out forward neighbours, scatter into `adj` (in place: the JAX
+    version donates the buffer). knn_k <= 127 rides the fused flat scan,
+    whose stage one is the CUDA kernel for CUDA tensors; larger pools use
+    the exact blockwise scan."""
+    q = codes[rows].float()
+    if use_kernel:
+        from .flat_scan import flat_scan_topk
+
+        scan_norms = torch.sqrt(norms2) if metric == MetricType.COSINE else norms2
+        sims, ids = flat_scan_topk(q, codes, scan_norms, mask, metric=metric, topk=knn_k + 1)
+    else:
+        from .topk import blockwise_topk_search
+
+        sims, ids = blockwise_topk_search(
+            q, codes, metric, knn_k + 1,
+            mask=mask != 0, x_sq_norms=norms2, block_size=131072,
+        )
+    out_ids = prune_scored(
+        rows, ids, sims, codes, norms2, metric=metric, max_out=max_out,
+        alpha=alpha, backfill_alpha=backfill_alpha,
+    )
+    adj[rows] = out_ids.to(adj.dtype)
+    return adj
+
+
+def merge_prune_step(
+    rows,  # (B,)
+    cand_ids,  # (B, C) forward + reverse candidates, unsorted
+    codes,
+    norms2,
+    adj,  # (N, max_out) int32, updated in place
+    *,
+    metric: MetricType,
+    max_out: int,
+    alpha: float = 1.0,
+    backfill_alpha: float = 0.0,
+):
+    """Final per-node prune over forward + reverse candidates: score against
+    the base, sort desc, heuristic-prune, scatter into `adj`."""
+    cand_ids = cand_ids.long()
+    valid = (cand_ids >= 0) & (cand_ids != rows[:, None])
+    safe = cand_ids.clamp_min(0)
+    vecs = codes[safe].float()
+    nrm2 = norms2[safe]
+    sims = _sim_to_base(codes[rows], norms2[rows], vecs, nrm2, metric)
+    sims = torch.where(valid, sims, NEG_INF)
+    order = torch.sort(-sims, dim=1, stable=True).indices
+    ids_o = cand_ids.gather(1, order)
+    sims_o = sims.gather(1, order)
+    # forward + reverse can repeat an id (mutual edges): keep the first only
+    valid_o = valid.gather(1, order) & ~_dup_mask(ids_o)
+    pair = _pairwise_sims(vecs.gather(1, order[:, :, None].expand_as(vecs)), nrm2.gather(1, order), metric)
+    sims_o = torch.where(valid_o, sims_o, NEG_INF)
+    keep = _prune_keep(pair, sims_o, valid_o, max_out, metric=metric, alpha=alpha)
+    ids_c, _ = _compact_keep_backfill(
+        keep, valid_o, ids_o, sims_o, max_out,
+        pair=pair, metric=metric, backfill_alpha=backfill_alpha,
+    )
+    adj[rows] = _pad_cols(ids_c, max_out).to(adj.dtype)
+    return adj
