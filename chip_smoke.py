@@ -24,6 +24,17 @@ Phases (any failure raises, and the exit code is non-zero):
      500 (recall@10 against the exact oracle; >= 0.85 at ef=500), one profiled
      ef=256 batch, the CUDA beam against the same beam on CPU copies of its
      tensors (64 queries), and a reopen that loads the graph from disk
+  7. the IVF path through the public API, on the JAX package's IVF deployment
+     (benchmarks/bench_suite.py:182-294): 1M x 96 clustered fp32 docs
+     (benchmarks/h2h.py::make_data) with an inverted `tag` string and a
+     `price` double, IVFIndexParam(L2, use_soar=True), n_list auto (1,024)
+     -> insert (batches of 1024) -> optimize (k-means, SOAR spill and lists on
+     the card) -> flush -> batch_query of 1024 queries at nprobe 8 / 16 / 32 /
+     64 (recall@10 against the exact oracle: >= 0.98 at 8, >= 0.995 above),
+     the filter `tag = 't3' AND price < 0.5` (recall@10 1.0 against the
+     filtered oracle), one profiled nprobe=16 batch, the CUDA probe against
+     the same probe on CPU copies of its tensors (64 queries), and a reopen
+     that loads the trained lists without running k-means
 
 The line before the last is a JSON object with the kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -61,6 +72,14 @@ REF_CURVE = {128: 0.653, 256: 0.811, 500: 0.911}
 MIN_RECALL_EF500 = 0.85
 BEAM_CHECK_Q, BEAM_CHECK_EF = 64, 128
 BEAM_RTOL = 1e-4  # CUDA beam vs CPU beam: scores, and the width of a near-tie
+IVF_N, IVF_D = 1_000_000, 96  # the Deep1M shape of bench_suite.py's config #4
+NPROBES = (8, 16, 32, 64)
+# recall@10 floors; zvec_tpu read 0.9906 / 1.0 / 1.0 / 1.0 on this config
+# (benchmarks/suite_results.json, "ivf_hybrid_filter")
+IVF_FLOORS = {8: 0.98, 16: 0.995, 32: 0.995, 64: 0.995}
+IVF_FILTER = "tag = 't3' AND price < 0.5"
+PROBE_CHECK_Q, PROBE_CHECK_NPROBE = 64, 16
+PROBE_RTOL = 1e-4  # CUDA probe vs CPU probe: scores, and the width of a near-tie
 
 
 def log(msg: str) -> None:
@@ -540,6 +559,178 @@ def phase_hnsw(workdir: Path, qset, X) -> int:
     return launches
 
 
+def _ivf_data():
+    """bench_suite.py's config #4: make_data("clustered", ...) for vectors and
+    queries, then tags and prices from default_rng(SEED + 1) with its SEED = 7."""
+    from benchmarks.h2h import make_data
+
+    rng = np.random.default_rng(7 + 1)
+    X, queries = make_data("clustered", IVF_N, IVF_D, nq=Q)
+    tags = rng.integers(0, 10, IVF_N)  # 'tag = tN' selects ~10%
+    price = rng.random(IVF_N)
+    return X, queries, tags, price
+
+
+def _recall(got: np.ndarray, exp: np.ndarray) -> float:
+    return float(np.mean([len(set(got[r]) & set(exp[r])) for r in range(len(got))]) / exp.shape[1])
+
+
+def _probe_check(engine, queries: np.ndarray, dev: torch.device) -> None:
+    """The engine's probe on its CUDA tensors against the same probe on CPU
+    copies of them: ids equal, scores within PROBE_RTOL, except rows whose
+    differing ids all score within PROBE_RTOL of the row's k-th score."""
+    from zvec_tpu_torch.core.ivf import ivf_probe_core
+
+    qs = queries[:PROBE_CHECK_Q]
+    nprobe = PROBE_CHECK_NPROBE + engine._extra_probes
+
+    def run(dev):
+        t = lambda x: x.to(dev)  # noqa: E731
+        return ivf_probe_core(
+            torch.from_numpy(qs).to(dev), t(engine._centroids), t(engine._lists_codes),
+            t(engine._lists_norms), t(engine._lists_ids), None, engine._dequant,
+            metric=engine.metric, nprobe=nprobe, topk=2 * K, int4_packed=engine._int4_packed,
+        )
+
+    cs, ci = (x.cpu() for x in run(dev))
+    t0 = time.perf_counter()
+    ps, pi = run(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    bad, differ, err = _check_final_at_k(cs, ci.long(), ps, pi.long(), rtol=PROBE_RTOL)
+    scale = max(float(ps.abs().max()), 1.0)
+    log(f"ivf: CUDA probe vs CPU probe on {PROBE_CHECK_Q} queries at nprobe={PROBE_CHECK_NPROBE} "
+        f"(+{engine._extra_probes} for split lists), top-{2 * K}: {differ} rows differ "
+        f"({bad} outside near-ties), max |dscore| {err:.3g} on equal rows; CPU probe {cpu_s:.2f} s")
+    if bad or err > PROBE_RTOL * scale:
+        raise AssertionError("ivf: the CUDA probe disagrees with the CPU probe")
+
+
+def phase_ivf(workdir: Path, dev: torch.device) -> int:
+    """The IVF path: train on the card, sweep nprobe, filter, check, reopen."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.ops.kmeans import lloyd
+
+    X, queries, tags, price = _ivf_data()
+    schema = zt.CollectionSchema(
+        "deep_like",
+        fields=[
+            zt.FieldSchema("tag", zt.DataType.STRING, index_param=zt.InvertIndexParam()),
+            zt.FieldSchema("price", zt.DataType.DOUBLE),
+        ],
+        vectors=[zt.VectorSchema("vec", zt.DataType.VECTOR_FP32, IVF_D,
+                                 zt.IVFIndexParam(zt.MetricType.L2, use_soar=True))],
+    )
+    path = workdir / "ivf1m"
+    flat_scan_topk.launches = 0
+    t0 = time.perf_counter()
+    col = zt.create_and_open(str(path), schema)
+    for lo in range(0, IVF_N, 1024):
+        col.insert([zt.Doc(id=str(i), vectors={"vec": X[i]},
+                           fields={"tag": f"t{tags[i]}", "price": float(price[i])})
+                    for i in range(lo, min(lo + 1024, IVF_N))])
+    t_insert = time.perf_counter() - t0
+    col.optimize()
+    t_build = time.perf_counter() - t0 - t_insert
+    col.flush()
+    seg = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0)
+    engine = seg.engine_for("vec")
+    bt = engine.build_times
+    tensors = (engine._centroids, engine._lists_codes, engine._lists_norms, engine._lists_ids)
+    list_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    secondaries = len(engine._trained["assign_rows"]) - IVF_N
+    log(f"ivf: insert {t_insert:.2f} s, optimize {t_build:.2f} s, of which the engine build "
+        f"(data fetch + training + lists + upload) {engine.stats.last_build_secs:.2f} s: k-means "
+        f"(stratified + final Lloyd) {bt['kmeans']:.2f} s, top-2 assign {bt['assign_top2']:.2f} s, "
+        f"spill {bt['spill']:.2f} s, list assembly + upload {bt['assemble']:.2f} s; aux write "
+        f"{bt['dump_aux']:.2f} s")
+    log(f"ivf: n_list {engine._trained['centroids'].shape[0]}, virtual lists "
+        f"{engine._centroids.shape[0]}, bucket length {engine._lists_ids.shape[1]}, extra probes "
+        f"{engine._extra_probes}, SOAR secondaries {secondaries} ({secondaries / IVF_N:.3f} per row), "
+        f"lists on the card {list_bytes / 1e9:.3f} GB")
+    if not all(t.device.type == dev.type for t in tensors):
+        raise AssertionError(f"ivf: the centroids or the lists are not on {dev.type}")
+
+    xd = torch.from_numpy(X).to(dev)
+    _, oi = _exact_oracle(xd, torch.from_numpy(queries).to(dev))
+    exp = oi[:, :K].cpu().numpy()
+    ids16 = None
+    for nprobe in NPROBES:
+        param = zt.IVFQueryParam(nprobe=nprobe)
+        first = col.batch_query("vec", queries, topk=K, output_fields=[], param=param)
+        col.batch_query("vec", queries, topk=K, output_fields=[], param=param)
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = col.batch_query("vec", queries, topk=K, output_fields=[], param=param)
+            times.append(time.perf_counter() - t1)
+        batch_s = min(times)
+        got = _ids(first)
+        scores = np.array([[d.score for d in docs] for docs in first], np.float32)
+        if got.shape != (Q, K) or not np.isfinite(scores).all() or len(out) != Q:
+            raise AssertionError("ivf: results are not (1024, 10) finite scores")
+        recall = _recall(got, exp)
+        if nprobe == PROBE_CHECK_NPROBE:
+            ids16 = got
+        log(f"ivf: nprobe={nprobe} (+{engine._extra_probes}): {batch_s * 1e3:.2f} ms per 1024-query "
+            f"batch, {Q / batch_s:.1f} qps (batch_query, warm twice, best of 2); recall@{K} "
+            f"{recall:.4f} on {Q} queries (floor {IVF_FLOORS[nprobe]})")
+        if recall < IVF_FLOORS[nprobe]:
+            raise AssertionError(f"ivf: recall@10 at nprobe={nprobe} is {recall:.4f} < {IVF_FLOORS[nprobe]}")
+
+    sel = np.flatnonzero((tags == 3) & (price < 0.5))
+    fs, fi = _exact_oracle(xd[torch.from_numpy(sel).to(dev)], torch.from_numpy(queries).to(dev))
+    fexp = sel[fi[:, :K].cpu().numpy()]
+    fd = -fs.cpu().numpy()  # squared L2 distances, ascending
+    near_tie = np.abs(fd[:, K - 1] - fd[:, K]) <= TIE_RTOL * np.abs(fd[:, K - 1])
+    col._impl.debug_profiling = True
+    fdocs = col.batch_query("vec", queries, topk=K, filter=IVF_FILTER, output_fields=[])
+    profile_json = col._impl.last_profile or ""
+    col._impl.debug_profiling = False
+    times = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        col.batch_query("vec", queries, topk=K, filter=IVF_FILTER, output_fields=[])
+        times.append(time.perf_counter() - t1)
+    fpath = ("brute force by keys: masked exact scan over the lists (IvfEngine._linear_scan)"
+             if "bf_by_keys" in profile_json else "probe + filtered safety net")
+    fgot = _ids(fdocs)
+    frecall = _recall(fgot, fexp)
+    short = np.array([len(set(fgot[r]) & set(fexp[r])) < K for r in range(Q)])
+    log(f"ivf: filter {IVF_FILTER!r} ({len(sel)} rows, {len(sel) / IVF_N:.4f} of the corpus): "
+        f"{min(times) * 1e3:.2f} ms per 1024-query batch; recall@{K} {frecall:.6f} against the "
+        f"filtered oracle ({int(short.sum())} rows short, {int((short & ~near_tie).sum())} outside "
+        f"near-ties); path: {fpath}")
+    if (short & ~near_tie).any():
+        raise AssertionError("ivf: filtered recall@10 below 1.0 outside near-ties")
+    launches = flat_scan_topk.launches
+    del xd
+    torch.cuda.empty_cache()
+
+    param = zt.IVFQueryParam(nprobe=PROBE_CHECK_NPROBE)
+    _profiled(f"ivf probe batch nprobe={PROBE_CHECK_NPROBE} ({Q} queries)",
+              lambda: engine.search(queries, K, None, param))
+    _probe_check(engine, queries, dev)
+    col._impl.close()
+    del col, seg, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = lloyd.calls
+    reopened = zt.open(str(path))
+    again = _ids(reopened.batch_query("vec", queries, topk=K, output_fields=[], param=param))
+    eng2 = next(s for s in reopened._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
+    loaded = eng2._loaded_aux is not None and "kmeans" not in eng2.build_times
+    reopened._impl.close()
+    if lloyd.calls != calls or not loaded:
+        raise AssertionError("ivf: the reopened collection ran k-means again")
+    if not (again == ids16).all():
+        raise AssertionError("ivf: reopened collection returns other ids")
+    log(f"ivf: reopened collection loads the trained lists (lloyd calls {lloyd.calls - calls}) "
+        f"and returns identical ids at nprobe={PROBE_CHECK_NPROBE}")
+    return launches
+
+
 def main() -> None:
     smi = phase_toolchain()
     phase_build()
@@ -556,6 +747,10 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         hnsw_launches = phase_hnsw(workdir, qset, X)
+        del qset, X
+        gc.collect()
+        torch.cuda.empty_cache()
+        ivf_launches = phase_ivf(workdir, torch.device("cuda"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(smi)
@@ -564,8 +759,9 @@ def main() -> None:
         "route": "cuda",
         "source": "zvec_tpu_torch/csrc/flat_scan.cu",
         "replaces": "zvec_tpu/ops/flat_pallas.py:92",
-        "launches": flat_launches + hnsw_launches,
-        "launches_by_path": {"flat_search": flat_launches, "hnsw_build": hnsw_launches},
+        "launches": flat_launches + hnsw_launches + ivf_launches,
+        "launches_by_path": {"flat_search": flat_launches, "hnsw_build": hnsw_launches,
+                             "ivf": ivf_launches},
         "max_abs_err": case["max_abs_err"],
         "ms": case["ms"],
         "plain_ms": case["plain_ms"],

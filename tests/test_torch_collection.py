@@ -5,8 +5,9 @@ The same documents go through `create_and_open` -> `insert` -> `optimize` ->
 packages; ids must be equal and scores within 1e-4 (rtol and atol: float32
 sums in another order). The collection on disk is the state a database
 carries across, so a collection written by one package must open in the other
-and answer alike. Also: the port imports no JAX, and index types it has no
-engine for (IVF, sparse fields) fail loudly.
+and answer alike. IVF collections train, answer, reopen and open across
+packages the same way. Also: the port imports no JAX, and fields it has no
+engine for (sparse) fail loudly.
 """
 
 import ast
@@ -36,7 +37,7 @@ CONFIGS = {
 }
 
 
-def _schema(pkg, metric, qtype):
+def _schema(pkg, metric, qtype, index_param=None):
     return pkg.CollectionSchema(
         "parity",
         fields=[
@@ -48,7 +49,8 @@ def _schema(pkg, metric, qtype):
                 "emb",
                 pkg.DataType.VECTOR_FP32,
                 DIM,
-                pkg.FlatIndexParam(
+                index_param
+                or pkg.FlatIndexParam(
                     pkg.MetricType[metric], quantize_type=pkg.QuantizeType[qtype]
                 ),
             )
@@ -170,43 +172,101 @@ def test_collection_opens_across_packages(tmp_path, writer, reader):
     other._impl.close()
 
 
-def test_hnsw_index_raises(tmp_path):
-    """HNSW is ported now; the index type still refused on create is IVF."""
-    p = zvec_tpu_torch
-    schema = p.CollectionSchema(
-        "ivf_col",
-        vectors=[
-            p.VectorSchema(
-                "emb", p.DataType.VECTOR_FP32, DIM, p.IVFIndexParam(p.MetricType.L2)
-            )
-        ],
-    )
-    with pytest.raises(NotImplementedError, match="IVF"):
-        p.create_and_open(str(tmp_path / "h"), schema)
+PKGS = {"jax": zvec_tpu, "torch": zvec_tpu_torch}
+N_IVF = 1500  # above the IVF brute-force threshold of 1,000 rows
 
 
-def test_create_index_hnsw_and_jax_hnsw_collection_raise(tmp_path):
-    """HNSW is ported now; `create_index` with IVF, and an IVF collection
-    written by zvec_tpu, are what must still be refused."""
-    col = _fill(zvec_tpu_torch, tmp_path / "t", optimize=False)
-    with pytest.raises(NotImplementedError, match="IVF"):
-        col.create_index("emb", zvec_tpu_torch.IVFIndexParam(zvec_tpu_torch.MetricType.L2))
-    col._impl.close()
-    # an IVF collection written by zvec_tpu is refused on open, not scanned flat
-    schema = zvec_tpu.CollectionSchema(
-        "ivf_col",
-        vectors=[
-            zvec_tpu.VectorSchema(
-                "emb", zvec_tpu.DataType.VECTOR_FP32, DIM,
-                zvec_tpu.IVFIndexParam(zvec_tpu.MetricType.L2),
-            )
-        ],
-    )
-    jc = zvec_tpu.create_and_open(str(tmp_path / "j"), schema)
+def _fill_ivf(pkg, path, index_param, optimize=True):
+    """N_IVF clustered docs; the first N come from `_vectors`."""
+    X, _ = _vectors()
+    rng = np.random.default_rng(1)
+    extra = (X[rng.integers(0, N, N_IVF - N)] + 0.1 * rng.standard_normal((N_IVF - N, DIM)))
+    X = np.concatenate([X, extra.astype(np.float32)])
+    col = pkg.create_and_open(str(path), _schema(pkg, "L2", "UNDEFINED", index_param))
+    for lo in range(0, N_IVF, 500):
+        col.insert(
+            [
+                pkg.Doc(id=f"d{i}", vectors={"emb": X[i]},
+                        fields={"price": float(i % 50), "tag": f"t{i % 7}"})
+                for i in range(lo, lo + 500)
+            ]
+        )
+    if optimize:
+        col.optimize()
+    return col
+
+
+def _ivf_engine(col):
+    return next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("emb")
+
+
+def test_ivf_collection_create_fill_query(tmp_path):
+    """An IVF collection (SOAR lists) trains on optimize and answers
+    batch_query, IVFQueryParam and a filtered query as zvec_tpu does; it
+    flushes and reopens without training again."""
+    from zvec_tpu_torch.ops.kmeans import lloyd
+
+    _, Q = _vectors()
+    out = {}
+    for name, pkg in PKGS.items():
+        col = _fill_ivf(pkg, tmp_path / name, pkg.IVFIndexParam(pkg.MetricType.L2, n_list=16, use_soar=True))
+        p = pkg.IVFQueryParam(nprobe=3)
+        out[name] = [
+            _ids_scores(col.batch_query("emb", Q, topk=K, output_fields=[])),
+            _ids_scores(col.batch_query("emb", Q, topk=K, output_fields=[], param=p)),
+            _ids_scores([col.query(pkg.VectorQuery("emb", vector=Q[1], param=p), topk=K,
+                                   filter="price < 20")]),
+        ]
+        if name == "torch":
+            assert type(_ivf_engine(col)).__name__ == "IvfEngine"
+            col.flush()
+            col._impl.close()
+            calls = lloyd.calls
+            col = pkg.open(str(tmp_path / name))
+            _assert_same(out[name][1], _ids_scores(
+                col.batch_query("emb", Q, topk=K, output_fields=[], param=p)))
+            assert lloyd.calls == calls and _ivf_engine(col)._loaded_aux is not None
+        col._impl.close()
+    for a, b in zip(out["jax"], out["torch"]):
+        _assert_same(a, b)
+
+
+def test_create_index_ivf_on_flat_collection(tmp_path):
+    _, Q = _vectors()
+    out = {}
+    for name, pkg in PKGS.items():
+        col = _fill_ivf(pkg, tmp_path / name, pkg.FlatIndexParam(pkg.MetricType.L2))
+        col.create_index("emb", pkg.IVFIndexParam(pkg.MetricType.L2, n_list=12))
+        assert "emb" in col._impl.segments[0].meta.indexes
+        out[name] = _ids_scores(col.batch_query(
+            "emb", Q, topk=K, output_fields=[], param=pkg.IVFQueryParam(nprobe=2)))
+        if name == "torch":
+            assert type(_ivf_engine(col)).__name__ == "IvfEngine"
+        col._impl.close()
+    _assert_same(out["jax"], out["torch"])
+
+
+def test_open_jax_ivf_collection(tmp_path):
+    """An IVF collection written by zvec_tpu (sealed rows plus WAL-only
+    rows) opens in the port, which loads the trained lists from
+    `ivf_emb.npz` instead of training, and returns zvec_tpu's ids."""
+    from zvec_tpu_torch.ops.kmeans import lloyd
+
+    _, Q = _vectors()
+    jc = _fill_ivf(zvec_tpu, tmp_path / "j", zvec_tpu.IVFIndexParam(zvec_tpu.MetricType.L2, n_list=16))
+    jc.insert([zvec_tpu.Doc(id="wal_only", vectors={"emb": Q[2]}, fields={"price": 3.0})])
     jc.flush()
+    expect = _ids_scores(jc.batch_query("emb", Q, topk=K, output_fields=[],
+                                        param=zvec_tpu.IVFQueryParam(nprobe=4)))
     jc._impl.close()
-    with pytest.raises(NotImplementedError, match="IVF"):
-        zvec_tpu_torch.open(str(tmp_path / "j"))
+    calls = lloyd.calls
+    tc = zvec_tpu_torch.open(str(tmp_path / "j"))
+    got = _ids_scores(tc.batch_query("emb", Q, topk=K, output_fields=[],
+                                     param=zvec_tpu_torch.IVFQueryParam(nprobe=4)))
+    _assert_same(expect, got)
+    assert got[0][2][0] == "wal_only"
+    assert lloyd.calls == calls and _ivf_engine(tc)._loaded_aux is not None
+    tc._impl.close()
 
 
 def test_sparse_field_and_multi_gpu_raise(tmp_path):
@@ -225,7 +285,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys; import zvec_tpu_torch; import zvec_tpu_torch.core.flat; "
         "import zvec_tpu_torch.ops.flat_scan; import zvec_tpu_torch.core.hnsw; "
-        "import zvec_tpu_torch.ops.hnsw; "
+        "import zvec_tpu_torch.ops.hnsw; import zvec_tpu_torch.core.ivf; "
+        "import zvec_tpu_torch.ops.kmeans; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zvec_tpu' or m.startswith('zvec_tpu.') or m == 'triton']; "
         "assert not bad, bad"

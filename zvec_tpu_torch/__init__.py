@@ -6,13 +6,14 @@ layer in PyTorch and its fused flat-scan kernel hand-written in CUDA for
 Hopper (`csrc/flat_scan.cu`). `zvec_tpu` stays the reference: collections
 written by either package open in the other.
 
-Dense fields run with FLAT or HNSW indexes (fp32, fp16, int8, int4 and
+Dense fields run with FLAT, HNSW or IVF indexes (fp32, fp16, int8, int4 and
 binary codes); HNSW is the default index of a vector field, as in the
 reference. Its graph is built on the card (an exact kNN graph whose forward
-pass runs the CUDA flat scan) and searched with a batched beam. IVF indexes,
-sparse fields, group-by on an HNSW field, multi-vector queries and multi-GPU
-sharding raise `NotImplementedError` until they are ported; embedding
-functions and rerankers are not exported yet.
+pass runs the CUDA flat scan) and searched with a batched beam. IVF trains
+k-means on the card (SOAR-spilled lists optional) and probes its lists in
+batches there. Sparse fields, group-by on an HNSW field, multi-vector queries
+and multi-GPU sharding raise `NotImplementedError` until they are ported;
+embedding functions and rerankers are not exported yet.
 """
 
 from . import model as model

@@ -299,12 +299,7 @@ def create_engine(
     """Factory: engine from index params (string-keyed plugin registry in the
     reference; enum-keyed here)."""
     # Imports deferred to avoid import cycles; importing registers the engines.
-    from . import flat, hnsw  # noqa: F401
-
-    try:
-        from . import ivf  # noqa: F401
-    except ImportError:
-        pass
+    from . import flat, hnsw, ivf  # noqa: F401
 
     itype = IndexType.FLAT if force_flat else params.index_type
     cls = _REGISTRY.get(itype)

@@ -44,20 +44,12 @@ _LOCK_FILE = ".lock"
 
 
 def _require_ported(vectors) -> None:
-    """Only dense FLAT and HNSW fields have engines in this package so far:
-    an IVF index, or a sparse field, fails here instead of scanning flat."""
-    from ..typing.enum import IndexType
-
+    """Dense FLAT, HNSW and IVF fields have engines in this package so far:
+    a sparse field fails here instead of scanning flat."""
     for vs in vectors:
         if vs.data_type.is_sparse_vector:
             raise NotImplementedError(
                 f"sparse vector field '{vs.name}' is not supported by "
-                "zvec_tpu_torch yet"
-            )
-        itype = IndexType(vs.index_param.index_type)
-        if itype not in (IndexType.FLAT, IndexType.HNSW):
-            raise NotImplementedError(
-                f"{itype.name} index on field '{vs.name}' is not supported by "
                 "zvec_tpu_torch yet"
             )
 

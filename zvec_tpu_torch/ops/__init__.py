@@ -1,7 +1,8 @@
 """Device compute layer: PyTorch tensor code and the hand-written CUDA scan.
 
-`distance`, `topk` and `hnsw` (the HNSW beam and build steps) are the torch
-forms of the JAX package's XLA programs; `flat_scan` holds the fused
+`distance`, `topk`, `hnsw` (the HNSW beam and build steps, the blocked top-2
+assignment) and `kmeans` are the torch forms of the JAX package's XLA
+programs; `flat_scan` holds the fused
 group-max scan kernel (`csrc/flat_scan.cu`) that replaces the Pallas kernel
 of `zvec_tpu/ops/flat_pallas.py`.
 """

@@ -14,6 +14,10 @@ The build's forward kNN pass scores every batch with the fused flat scan
 (`ops/flat_scan.py::flat_scan_topk`, the CUDA kernel on the card) for
 knn_k <= 127, and with the exact blockwise torch scan above that.
 
+`assign_top2_blocked` (two nearest centroids per row, blocked over N) serves
+the IVF SOAR spill (`ops/kmeans.py::assign_top2`); the JAX module's int8-row
+branch of it belongs to the clustered build and is not ported yet.
+
 Graph layout (tensors on one device):
   codes      (N_pad, D)          vectors (f32 / f16 / int8 / packed int4)
   l0_nbrs    (N_pad, M0) int32   level-0 adjacency, -1 padded
@@ -45,6 +49,7 @@ __all__ = [
     "prune_scored",
     "knn_build_step",
     "merge_prune_step",
+    "assign_top2_blocked",
 ]
 
 _HASH_MULT = 2654435761  # Knuth multiplicative hash of the visited index
@@ -554,3 +559,29 @@ def merge_prune_step(
     )
     adj[rows] = _pad_cols(ids_c, max_out).to(adj.dtype)
     return adj
+
+
+def _assign_top2_scan(x: torch.Tensor, cents: torch.Tensor, cnorm2: torch.Tensor) -> torch.Tensor:
+    """Two nearest centroids of each row of one block, (B, 2) int32. The
+    rank-equivalent distance ||c||^2 - 2 x.c drops ||x||^2, constant per row;
+    a double argmin (the first index masked out for the second) in place of
+    a top-2 sort, ties to the lower index as in the JAX scan."""
+    score = cnorm2[None, :] - 2.0 * _exact_dots("nd,kd->nk", x, cents)
+    i1 = torch.argmin(score, dim=1)
+    s2 = score.scatter(1, i1[:, None], float("inf"))
+    i2 = torch.argmin(s2, dim=1)
+    return torch.stack([i1, i2], dim=1).to(torch.int32)
+
+
+def assign_top2_blocked(data: torch.Tensor, cents: torch.Tensor, block: int = 16384) -> torch.Tensor:
+    """Two nearest centroids per row, blocked over N so the (N, K) distance
+    matrix never materializes; a non-divisible N runs its remainder as one
+    smaller block. Returns (N, 2) int32 on the device of `data`."""
+    cents = cents.to(device=data.device, dtype=torch.float32)
+    cnorm2 = (cents * cents).sum(-1)
+    return torch.cat(
+        [
+            _assign_top2_scan(data[lo : lo + block], cents, cnorm2)
+            for lo in range(0, data.shape[0], block)
+        ]
+    )
