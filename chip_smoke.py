@@ -36,8 +36,14 @@ Phases (any failure raises, and the exit code is non-zero):
      the same probe on CPU copies of its tensors (64 queries), and a reopen
      that loads the trained lists without running k-means
 
-The line before the last is a JSON object with the kernel's launches, error
-and times; the last line is {"ok": true, "device": {...}}. Needs one CUDA
+Phases 3 and 3b print, beside each stage-one time, its bound (the larger of
+the split-TF32 tensor-core work over 495 TFLOP/s and the bytes over 3.35
+TB/s, with the FLOP and byte counts), the roofline share (bound / time) and,
+for fp32 codes, a library yardstick: torch.matmul of the same (Q, D) x (D, N)
+product in full fp32, the product only (the port never calls it).
+
+The line before the last is a JSON object with the kernel's launches, error,
+times, bound and yardstick; the last line is {"ok": true, "device": {...}}. Needs one CUDA
 card; exits non-zero without one.
 """
 
@@ -80,6 +86,9 @@ IVF_FLOORS = {8: 0.98, 16: 0.995, 32: 0.995, 64: 0.995}
 IVF_FILTER = "tag = 't3' AND price < 0.5"
 PROBE_CHECK_Q, PROBE_CHECK_NPROBE = 64, 16
 PROBE_RTOL = 1e-4  # CUDA probe vs CPU probe: scores, and the width of a near-tie
+# published H100 SXM peaks (NVIDIA's data sheet), for the roofline bound of K1
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate
+PEAK_HBM_BYTES = 3.35e12  # device memory rate
 
 
 def log(msg: str) -> None:
@@ -101,6 +110,42 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _bound(nq: int, n: int, d: int, topk: int, tile_n: int, codes: torch.Tensor) -> dict:
+    """The least time the card could take for stage one: the larger of its
+    tensor-core work (three TF32 products per fp32 pair, two for fp16 / int8 /
+    int4 codes, 2*Q*N*D FLOP each) over the TF32 peak and its bytes (codes,
+    norms, mask and queries read once, (tile, k, Q) keys and ids written
+    once) over the memory rate."""
+    passes = 3 if codes.dtype == torch.float32 else 2
+    flop = passes * 2.0 * nq * n * d
+    nbytes = (codes.numel() * codes.element_size() + n * 5 + nq * d * 4
+              + (n // tile_n) * topk * nq * 8)
+    t_ops, t_bytes = flop / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flop=flop, bytes=nbytes)
+
+
+def _library_ms(q: torch.Tensor, codes: torch.Tensor):
+    """torch.matmul of the same (Q, D) x (D, N) fp32 product in full fp32
+    (TF32 off): the product only, without key, mask or group-max. A yardstick;
+    the port never calls it. None for codes other than fp32."""
+    if codes.dtype != torch.float32:
+        return None
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return time_ms(lambda: torch.matmul(q, codes.T))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _bound_text(b: dict, k_ms: float, lib_ms) -> str:
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.3f} ms"
+    return (f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} ({b['flop']:.4g} FLOP at 495 TFLOP/s, "
+            f"{b['bytes']:.4g} B at 3.35 TB/s), roofline {b['bound_ms'] / k_ms:.1%}; "
+            f"library {lib} (torch.matmul fp32, product only)")
 
 
 def phase_toolchain() -> str:
@@ -204,9 +249,12 @@ def phase_kernel_vs_plain() -> dict:
     full = (torch.arange(N_PAD, device=dev) < N).to(torch.int8)
     sparse = full * (torch.rand(N_PAD, generator=g, device=dev) > 0.3).to(torch.int8)
     main_case = None
+    lib_ms = _library_ms(q, x)
     for ctype in ("fp32", "fp16", "int8", "int4"):
         for metric in ("L2", "IP", "COSINE"):
             codes, norms, dequant = _make_codes(x, ctype, metric)
+            bound = _bound(Q, N_PAD, D, K, fs.pick_tile(N_PAD, K), codes)
+            case_lib_ms = lib_ms if ctype == "fp32" else None
             mask = sparse if (ctype, metric) == ("fp32", "IP") else full
             kw = dict(metric=MetricType[metric], topk=K, dequant=dequant,
                       int4_dim=D if ctype == "int4" else None)
@@ -230,12 +278,15 @@ def phase_kernel_vs_plain() -> dict:
                 f"stage1 max|dkey| {s1_err:.3g} id swaps {swaps:.2e}; final rows differing "
                 f"{differ} (outside ties {bad}) max|dscore| {final_err:.3g}; "
                 f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
-                f"full scan {kf_ms:.3f} ms vs plain {pf_ms:.3f} ms"
+                f"full scan {kf_ms:.3f} ms vs plain {pf_ms:.3f} ms; "
+                + _bound_text(bound, k_ms, case_lib_ms)
             )
             if not (s1_ok and swaps <= STAGE1_MAX_ID_SWAPS and bad == 0 and finite):
                 raise AssertionError(f"kernel disagrees with plain version: {ctype} {metric}")
             if (ctype, metric) == ("fp32", "L2"):
-                main_case = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms)
+                main_case = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms,
+                                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                                 library_ms=case_lib_ms, roofline=bound["bound_ms"] / k_ms)
             del codes, norms
     return main_case
 
@@ -350,6 +401,8 @@ def phase_kernel_build_shape() -> dict:
     q = x[:Q_BUILD].contiguous()
     sq = (x * x).sum(1)
     out = {}
+    bound = _bound(Q_BUILD, N_BUILD_PAD, D, K_BUILD, fs.pick_tile(N_BUILD_PAD, K_BUILD), x)
+    lib_ms = _library_ms(q, x)
     for metric in ("L2", "COSINE"):
         norms = torch.sqrt(sq) if metric == "COSINE" else sq
         kw = dict(metric=MetricType[metric], topk=K_BUILD)
@@ -375,12 +428,14 @@ def phase_kernel_build_shape() -> dict:
             f"stage1 max|dkey| {s1_err:.3g} id swaps {swaps:.2e}; final rows differing "
             f"{differ} (outside ties {bad}) max|dscore| {final_err:.3g}; "
             f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
-            f"full scan {kf_ms:.3f} ms vs plain {pf_ms:.3f} ms"
+            f"full scan {kf_ms:.3f} ms vs plain {pf_ms:.3f} ms; " + _bound_text(bound, k_ms, lib_ms)
         )
         if not (s1_ok and swaps <= STAGE1_MAX_ID_SWAPS and bad == 0 and finite):
             raise AssertionError(f"kernel disagrees with plain version at the build shape: {metric}")
         out[metric] = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms,
-                           full_ms=kf_ms, full_plain_ms=pf_ms)
+                           full_ms=kf_ms, full_plain_ms=pf_ms, bound_ms=bound["bound_ms"],
+                           bound_by=bound["bound_by"], library_ms=lib_ms,
+                           roofline=bound["bound_ms"] / k_ms)
     del x, q, sq, mask
     return out
 
@@ -765,6 +820,10 @@ def main() -> None:
         "max_abs_err": case["max_abs_err"],
         "ms": case["ms"],
         "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"],
+        "library_ms": case["library_ms"],
+        "roofline": case["roofline"],
         "hnsw_build_shape": build_case,
     }]}))
     print(json.dumps({"ok": True, "device": {

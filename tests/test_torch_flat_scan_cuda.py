@@ -5,7 +5,8 @@ Run them on a GPU machine with `python -m pytest tests/test_torch_flat_scan_cuda
 
 Tolerances: stage-one keys rtol 1e-4 / atol 1e-3 (float32 sums in another
 order; keys reach a few hundred), group ids equal except swaps on near-equal
-keys (at most 0.1%); final top-k id sets equal and scores within 1e-5 (stage
+keys (at most 0.1%; `_check_stage1` does not count swaps between keys within
+1e-6 relative of the next rank's key, float32 near-ties); final top-k id sets equal and scores within 1e-5 (stage
 two is the same code on the same candidates).
 """
 
@@ -124,3 +125,104 @@ def test_kernel_cosine_zero_norm_rows(cuda):
     for r in range(3):
         assert {5, 1500} <= set(i[r].tolist())
         assert float(s[r, 0]) == pytest.approx(1.0)
+
+
+def _id_swaps(ids, ref_ids, ref_keys, rtol=1e-6):
+    """Share of positions whose group id differs from the plain version's,
+    not counting near-equal keys: those whose plain key lies within rtol of
+    the key ranked next to it."""
+    gap = (ref_keys[:, 1:] - ref_keys[:, :-1]).abs() <= rtol * ref_keys[:, 1:].abs()
+    near = torch.zeros_like(ids, dtype=torch.bool)
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    return float(((ids != ref_ids) & ~near).float().mean())
+
+
+def _check_stage1(args, kw):
+    """Stage one on the card against its plain version, then the final top-k."""
+    before = fs.flat_scan_topk.launches
+    ks, ki = fs.flat_scan_stage1(*args, **kw)
+    assert fs.flat_scan_topk.launches == before + 1
+    ps, pi = fs.flat_scan_stage1(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert ks.shape == ps.shape
+    assert torch.allclose(ks, ps, rtol=1e-4, atol=1e-3)
+    assert _id_swaps(ki, pi, ps) <= 1e-3
+    fs_, fi = fs.flat_scan_topk(*args, **kw)
+    gs, gi = fs.flat_scan_topk_plain(*args, **kw)
+    assert (torch.sort(fi, 1).values == torch.sort(gi, 1).values).all()
+    assert torch.allclose(fs_, gs, rtol=1e-5, atol=1e-5)
+    return ks, ki
+
+
+@pytest.mark.parametrize("nq", [1, 5, 70, 129])
+@pytest.mark.parametrize("d", [17, 40, 96, 100, 768])
+@pytest.mark.parametrize("ctype", ["fp32", "fp16", "int8", "int4"])
+def test_kernel_ragged_d_and_q(cuda, ctype, d, nq):
+    """Ragged contraction (D not a multiple of the 32-column chunk, rows not a
+    multiple of 16 bytes) and ragged query blocks (Q not a multiple of 64);
+    D = 768 streams the query halves instead of keeping them resident."""
+    metric = ["L2", "IP", "COSINE"][(d + nq) % 3]
+    arrays, kw = _case(ctype, metric, n=2048, d=d, nq=nq, seed=d * 1000 + nq)
+    _check_stage1(_to(cuda, arrays), kw)
+
+
+@pytest.mark.parametrize("n,topk,tile", [
+    (1024, 10, 1024), (2048, 10, 2048), (4096, 10, 4096), (16384, 10, 8192),
+    (8192, 1, 8192), (8192, 32, 4096), (8192, 128, 1024),
+])
+def test_kernel_every_tile_and_k(cuda, n, topk, tile):
+    """Every TILE_N of pick_tile (a single tile at N = 1024) and k in
+    {1, 10, 32, 128}."""
+    arrays, kw = _case("fp32", "L2", n=n, d=64, nq=70, seed=n + topk)
+    assert fs.pick_tile(n, topk) == tile
+    ks, _ = _check_stage1(_to(cuda, arrays), {**kw, "topk": topk})
+    assert ks.shape == (n // tile, topk, 70)
+
+
+def test_kernel_tile_with_empty_mask(cuda):
+    """A whole tile masked out: its keys are NEG_INF and its ids -1."""
+    arrays, kw = _case("fp32", "IP", n=16384, d=64, nq=70, seed=5)
+    q, codes, norms, mask = _to(cuda, arrays)
+    mask[:8192] = 0
+    ks, ki = _check_stage1((q, codes, norms, mask), kw)
+    assert (ki[0] == -1).all() and (ks[0] <= -3e38).all()
+    assert (ki[1] >= 128).all()
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
+def test_kernel_norms_near_800(cuda, metric):
+    """Rows of norm ~800 around one centre: the L2 key 2*dot - ||x||^2 cancels
+    ~640,000 down to the spread of the data, which one TF32 pass would not
+    resolve; split TF32 must."""
+    rng = np.random.default_rng(800)
+    d, n, nq, sigma = 128, 8192, 64, 30.0
+    centre = rng.standard_normal(d)
+    centre *= np.sqrt(800.0**2 - sigma**2 * d) / np.linalg.norm(centre)
+    x = (centre + sigma * rng.standard_normal((n, d))).astype(np.float32)
+    q = (centre + sigma * rng.standard_normal((nq, d))).astype(np.float32)
+    sq = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    norms = np.sqrt(sq) if metric == "COSINE" else sq
+    mask = np.ones(n, np.int8)
+    _check_stage1(_to(cuda, (q, x, norms, mask)), dict(metric=MetricType[metric], topk=10))
+
+
+def test_kernel_ties_to_lower_lane_at_k128(cuda):
+    """Equal group maxima within one tile: the 128 groups come out in lane
+    order, as the arg-max passes and the plain version give them."""
+    rng = np.random.default_rng(3)
+    d, n, nq = 24, 2048, 9
+    row = rng.integers(-3, 4, size=d).astype(np.float32)
+    x = np.tile(row, (n, 1))
+    x[1024 + 7] += 1.0  # one distinct row in tile 1
+    q = rng.integers(-3, 4, size=(nq, d)).astype(np.float32)
+    sq = (x**2).sum(1).astype(np.float32)
+    mask = np.ones(n, np.int8)
+    args = _to(cuda, (q, x, sq, mask))
+    kw = dict(metric=MetricType.IP, topk=128)
+    ks, ki = fs.flat_scan_stage1(*args, **kw)
+    ps, pi = fs.flat_scan_stage1(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert (ki == pi).all() and torch.equal(ks, ps)
+    lanes = torch.arange(128, device=cuda, dtype=torch.int32)
+    assert (ki[0] == lanes[:, None]).all()

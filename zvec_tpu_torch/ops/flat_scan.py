@@ -14,9 +14,11 @@ witness of its own group's max, so the k groups with the largest maxima cover
 the answer; the rescore then gives exact float32 scores.
 
 What bounds the kernel on an H100: at 1M x 128 fp32 codes and Q = 1024 the
-scan is 0.27 TFLOP against 0.5 GB of codes, so it is bound by fp32 FMA, not by
-device memory; see the note at the top of `csrc/flat_scan.cu` for what its
-design does about that.
+scan is 0.26 TFLOP against 0.5 GB of codes, so it is bound by arithmetic, not
+by device memory. The kernel runs the products on the tensor cores in split
+TF32 (three TF32 products per fp32 pair, two for fp16 / int8 / int4 codes),
+which keeps the keys at fp32 accuracy; see the note at the top of
+`csrc/flat_scan.cu` for the error argument and the design.
 
 The kernel is built at first use from `csrc/*.cu` with nvcc into
 `_build/` (a plain C interface loaded with ctypes), keyed by a hash of the
@@ -110,9 +112,11 @@ def _library():
             lib.zvec_flat_scan.argtypes = [
                 p, p, p, p, i, i, p, p, p, p,  # q qside qsum codes ctype metric knorm mask out_s out_i
                 i, i, i, ctypes.c_longlong, i, i,  # nq dk ld n tile_n topk
-                ctypes.c_float, ctypes.c_float, p,  # scale bias stream
+                ctypes.c_float, ctypes.c_float, p, p,  # scale bias qsplit stream
             ]
             lib.zvec_flat_scan.restype = ctypes.c_int
+            lib.zvec_flat_scan_scratch_floats.argtypes = [i, i, i, i]  # ctype nq dk ld
+            lib.zvec_flat_scan_scratch_floats.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 
@@ -141,13 +145,17 @@ def _stage1_kernel(q_kern, qside, qsum, codes, knorm, mask, *, metric, topk,
     out_s = torch.empty((n_tiles, topk, nq), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_tiles, topk, nq), dtype=torch.int32, device=dev)
     lib = _library()
+    ctype = 3 if int4 else _CODE_TYPES[codes.dtype]
+    # the kernel's split-TF32, zero-padded query halves
+    qsplit = torch.empty(lib.zvec_flat_scan_scratch_floats(ctype, nq, dk, ld),
+                         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.zvec_flat_scan(
             q_kern.data_ptr(), qside.data_ptr(), qsum.data_ptr(), codes.data_ptr(),
-            3 if int4 else _CODE_TYPES[codes.dtype], _METRICS[metric],
+            ctype, _METRICS[metric],
             knorm.data_ptr(), mask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            nq, dk, ld, n, tile_n, topk, scale, bias, stream,
+            nq, dk, ld, n, tile_n, topk, scale, bias, qsplit.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flat scan kernel launch failed: cudaError {rc}")
