@@ -1,6 +1,9 @@
 """Smoke run of zvec_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered]
+
+With no arguments every phase runs and the two JSON lines are printed; a
+subset of phases (for work on one path) prints no JSON line.
 
 Phases (any failure raises, and the exit code is non-zero):
   1. toolchain: torch / CUDA / nvcc versions and the card's name and power limit
@@ -23,7 +26,15 @@ Phases (any failure raises, and the exit code is non-zero):
      flush -> batch_query_many over 4 blocks of 1024 queries at ef 128 / 256 /
      500 (recall@10 against the exact oracle; >= 0.85 at ef=500), one profiled
      ef=256 batch, the CUDA beam against the same beam on CPU copies of its
-     tensors (64 queries), and a reopen that loads the graph from disk
+     tensors (64 queries), and a reopen that loads the graph from disk. The
+     docs carry an int64 `grp` field of 50 values: 64 group_by_query calls
+     (10 groups x 2 at ef=500, the groups harvested inside the beam) are
+     compared with the same grouping of the exact oracle's top-1,000 (at
+     most 2 rows per group, the best 64 rows, then the 10 groups with the
+     best leaders; on gaussian data the beam's recall, 0.90 at this ef,
+     bounds the agreement: floors 0.7 of the (query, group) pairs, 0.85 of
+     the group leaders), and the grouped beam on the card is held to the
+     same beam on CPU copies (16 queries)
   7. the IVF path through the public API, on the JAX package's IVF deployment
      (benchmarks/bench_suite.py:182-294): 1M x 96 clustered fp32 docs
      (benchmarks/h2h.py::make_data) with an inverted `tag` string and a
@@ -35,6 +46,22 @@ Phases (any failure raises, and the exit code is non-zero):
      filtered oracle), one profiled nprobe=16 batch, the CUDA probe against
      the same probe on CPU copies of its tensors (64 queries), and a reopen
      that loads the trained lists without running k-means
+  8. the clustered HNSW build through the public API, on the deployment of
+     benchmarks/bench_10m_hnsw.py (the repo's 10M x 128 recipe, after the
+     upstream Cohere-10M HNSW recipe) with its rows cut from 10,000,000 to
+     2,500,000: clustered L2 docs (250 centres), HnswIndexParam(L2, m=50,
+     ef_construction=500) and no clustered_build set, so the size rule picks
+     the path -> insert (batches of 1024) -> optimize (k-means buckets,
+     per-bucket exact kNN, forward prune, one NN-descent round, reverse +
+     merge, on bf16 build codes) -> flush -> batch_query_many over 4 blocks
+     of 1024 queries at ef 32 / 64 / 96 / 128 / 256 (recall@10 against the
+     exact oracle: >= 0.95 at ef=128, >= 0.965 at ef=256), no K1 launch in
+     the build, the hashed visited set in the beam, 64 group_by_query calls
+     at ef=256 (>= 0.9 of the (query, group) pairs equal to the exact
+     grouping under the harvest buffer's rule), the CUDA beam and grouped beam against the CPU's (64 / 16
+     queries), bucket_knn_all on the card against the CPU for 8
+     buckets of the build, profiles of one forward-prune and one NN-descent
+     batch, and a reopen that loads the graph without k-means or prune
 
 Phases 3 and 3b print, beside each stage-one time, its bound (the larger of
 the split-TF32 tensor-core work over 495 TFLOP/s and the bytes over 3.35
@@ -89,6 +116,32 @@ PROBE_RTOL = 1e-4  # CUDA probe vs CPU probe: scores, and the width of a near-ti
 # published H100 SXM peaks (NVIDIA's data sheet), for the roofline bound of K1
 PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12  # device memory rate
+# phase 8: bench_10m_hnsw.py's deployment, rows cut from 10,000,000
+CL_N = 2_500_000
+CL_EFS = (32, 64, 96, 128, 256)
+CL_FLOORS = {128: 0.95, 256: 0.965}  # recall@10
+# recall@10 of zvec_tpu on the uncut 10M deployment on its own chip
+# (benchmarks/h2h10m_results.json); recall only, a smaller corpus should read no lower
+CL_REF_CURVE_10M = {32: 0.858, 64: 0.924, 96: 0.950, 128: 0.959, 256: 0.973}
+CL_BUCKETS = 8  # buckets of the real build checked card against CPU
+BUCKET_RTOL = 1e-5  # width of a near-tie at a bucket's top-kc boundary
+# group-by (phases 6 and 8): an int64 `grp` field of 50 values, 64 calls of 10 groups x 2
+GRP_VALUES, GRP_COUNT, GRP_TOPK, GRP_Q = 50, 10, 2, 64
+GRP_ORACLE_K = 1000
+GRP_PLAIN_Q = 16  # plain top-10 queries timed beside the group-by calls
+# the width of the harvest buffer, as Collection.group_by_query sizes it: the
+# next power of two above max(2 * groups * members, 64), at most 1,024
+GRP_CAP = min(1 << max(6, (2 * GRP_COUNT * GRP_TOPK - 1).bit_length()), 1024)
+# floors on the share of (query, group) pairs, and of group leaders, equal to
+# the grouping of the exact top-1,000 under the buffer's rule. A group's
+# second member sits ~100 to 300 ranks deep, so the pairs follow the beam's
+# recall at that depth: low on the 1M gaussian collection (recall@10 0.90 at
+# ef=500; with ef=1000 0.87 of the pairs agree), near 1 on the clustered
+# collection (recall@10 0.995 at ef=256)
+GRP_GAUSSIAN = dict(ef=500, min_pairs=0.7, min_leaders=0.85)
+GRP_CLUSTERED = dict(ef=256, min_pairs=0.9, min_leaders=0.95)
+GRP_BEAM_Q, GRP_BEAM_CAP = 16, 64
+PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered")
 
 
 def log(msg: str) -> None:
@@ -291,14 +344,14 @@ def phase_kernel_vs_plain() -> dict:
     return main_case
 
 
-def _exact_oracle(X: torch.Tensor, queries: torch.Tensor):
-    """Exact L2 top-(k+1) on the card: float32 products, no TF32."""
+def _exact_oracle(X: torch.Tensor, queries: torch.Tensor, k: int = K + 1):
+    """Exact L2 top-k (k + 1 by default) on the card: float32 products, no TF32."""
     xn = (X * X).sum(1)
     best_s, best_i = [], []
     for lo in range(0, queries.shape[0], 256):
         qb = queries[lo : lo + 256]
         sims = -((qb * qb).sum(1)[:, None] + xn[None, :] - 2.0 * (qb @ X.T))
-        s, i = torch.topk(sims, K + 1, dim=1)
+        s, i = torch.topk(sims, k, dim=1)
         best_s.append(s)
         best_i.append(i)
     return torch.cat(best_s), torch.cat(best_i)
@@ -440,39 +493,58 @@ def phase_kernel_build_shape() -> dict:
     return out
 
 
-def _beam_check(engine) -> None:
-    """The engine's beam on its CUDA tensors against the same beam on CPU
-    copies of them: ids equal, scores within BEAM_RTOL, except rows whose
-    differing ids all score within BEAM_RTOL of the row's k-th score."""
+def _beam_on(engine, qs: np.ndarray, dev: torch.device, cpu_cache: dict, **kw):
+    """The engine's beam on `dev`, on CPU copies of its tensors for the CPU."""
     from zvec_tpu_torch.ops.hnsw import hnsw_search
 
-    rng = np.random.default_rng(SEED + 2)
-    qs = rng.standard_normal((BEAM_CHECK_Q, D)).astype(np.float32)
     g = engine._dev
-    budget = min(max(10_000, int(0.1 * engine._n)), engine._n)
-    kw = dict(metric=engine._search_metric, ef=BEAM_CHECK_EF, topk=K,
-              max_steps=BEAM_CHECK_EF + 64, num_levels=g["num_levels"], frontier=4,
-              visited_bits=0, done_frac=1.0)
-
-    def run(dev):
-        t = lambda x: x.to(dev)  # noqa: E731
-        return hnsw_search(
-            torch.from_numpy(qs).to(dev), t(engine._codes), t(engine._norms), t(g["l0"]),
-            [t(x) for x in g["upper_ids"]], [t(x) for x in g["upper_nbrs"]],
-            [t(x) for x in g["upper_down"]], g["entry_rows"], None, budget, None, **kw,
+    if dev.type == "cpu" and not cpu_cache:
+        cpu_cache.update(
+            codes=engine._codes.cpu(), norms=engine._norms.cpu(), l0=g["l0"].cpu(),
+            **{k: [x.cpu() for x in g[k]] for k in ("upper_ids", "upper_nbrs", "upper_down")},
         )
+    t = cpu_cache if dev.type == "cpu" else dict(g, codes=engine._codes, norms=engine._norms)
+    if kw.get("group_codes") is not None:
+        kw["group_codes"] = kw["group_codes"].to(dev)
+    budget = min(max(10_000, int(0.1 * engine._n)), engine._n)
+    return hnsw_search(
+        torch.from_numpy(qs).to(dev), t["codes"], t["norms"], t["l0"], t["upper_ids"],
+        t["upper_nbrs"], t["upper_down"], g["entry_rows"], None, budget, None,
+        metric=engine._search_metric, ef=BEAM_CHECK_EF, max_steps=BEAM_CHECK_EF + 64,
+        num_levels=g["num_levels"], frontier=4, done_frac=1.0, **kw,
+    )
 
-    cs, ci = (x.cpu() for x in run(torch.device("cuda")))
+
+def _beam_check(engine, qs: np.ndarray, label: str, visited_bits: int = 0, group_codes=None) -> None:
+    """The engine's beam on its CUDA tensors against the same beam on CPU
+    copies of them: ids equal, scores within BEAM_RTOL, except rows whose
+    differing ids all score within BEAM_RTOL of the row's k-th score. With
+    `group_codes`, the grouped beam's harvest buffers are held alike."""
+    cpu_cache: dict = {}
+    kw = dict(topk=K, visited_bits=visited_bits)
+    cuda = [x.cpu() for x in _beam_on(engine, qs, torch.device("cuda"), cpu_cache, **kw)]
     t0 = time.perf_counter()
-    ps, pi = run(torch.device("cpu"))
+    cpu = _beam_on(engine, qs, torch.device("cpu"), cpu_cache, **kw)
     cpu_s = time.perf_counter() - t0
-    bad, differ, err = _check_final_at_k(cs, ci, ps, pi, rtol=BEAM_RTOL)
-    scale = max(float(ps.abs().max()), 1.0)
-    log(f"hnsw: CUDA beam vs CPU beam on {BEAM_CHECK_Q} queries at ef={BEAM_CHECK_EF}: "
-        f"{differ} rows differ ({bad} outside near-ties), max |dscore| {err:.3g} "
-        f"on equal rows; CPU beam {cpu_s:.2f} s")
-    if bad or err > BEAM_RTOL * scale:
-        raise AssertionError("hnsw: the CUDA beam disagrees with the CPU beam")
+    what = [("beam", cuda, cpu)]
+    if group_codes is not None:
+        gq = qs[:GRP_BEAM_Q]
+        gkw = dict(topk=1, visited_bits=visited_bits, group_codes=group_codes,
+                   group_cap=GRP_BEAM_CAP, group_topk=GRP_TOPK)
+        gc_ = [x.cpu() for x in _beam_on(engine, gq, torch.device("cuda"), cpu_cache, **gkw)]
+        gp = _beam_on(engine, gq, torch.device("cpu"), cpu_cache, **gkw)
+        if not torch.equal(torch.where(gc_[3] >= 0, gc_[4], -1), gc_[4]):
+            raise AssertionError(f"{label}: the grouped beam kept a group code on an empty lane")
+        what.append((f"grouped beam (cap {GRP_BEAM_CAP}, {GRP_TOPK} per group)", gc_[2:4], gp[2:4]))
+    for name, (cs, ci), (ps, pi) in ((n, a[:2], b[:2]) for n, a, b in what):
+        bad, differ, err = _check_final_at_k(cs, ci, ps, pi, rtol=BEAM_RTOL)
+        valid = ps > -1e30
+        scale = max(float(ps[valid].abs().max()), 1.0)
+        log(f"{label}: CUDA {name} vs CPU {name} on {len(cs)} queries at ef={BEAM_CHECK_EF}, "
+            f"visited_bits={visited_bits}: {differ} rows differ ({bad} outside near-ties), "
+            f"max |dscore| {err:.3g} on equal rows; CPU beam {cpu_s:.2f} s")
+        if bad or err > BEAM_RTOL * scale:
+            raise AssertionError(f"{label}: the CUDA {name} disagrees with the CPU {name}")
 
 
 def _profiled(label: str, fn) -> None:
@@ -525,8 +597,78 @@ def _profile_build_batch(engine, X) -> None:
               lambda: merge_prune_step(rows, cand, codes, norms2, adj, **kw))
 
 
+def _group_by_check(col, X, grp: np.ndarray, queries: np.ndarray, label: str, *,
+                    ef: int, min_pairs: float, min_leaders: float) -> None:
+    """group_by_query (the groups harvested inside the beam) against the
+    same grouping worked out from the exact oracle's top-GRP_ORACLE_K: at
+    most GRP_TOPK rows per group, of those the best GRP_CAP rows (the harvest
+    buffer's width; a group whose second member ranks past it keeps one), then
+    the GRP_COUNT groups with the best leaders. A (query, group) pair agrees
+    when the oracle's group is returned with the oracle's members; its leader
+    agrees when the group's best member does. The share of pairs equal to the
+    grouping with no buffer limit is printed beside it."""
+    import zvec_tpu_torch as zt
+
+    dev = torch.device("cuda")
+    qs = queries[:GRP_Q]
+    _, oi = _exact_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(qs).to(dev), k=GRP_ORACLE_K)
+    param = zt.HnswQueryParam(ef=ef, done_frac=1.0)
+    passes = []
+    orig = col._impl._grouped_beam_pass
+    col._impl._grouped_beam_pass = lambda *a, **k: passes.append(orig(*a, **k)) or passes[-1]
+    pairs = unlimited = leaders = total = 0
+    times = []
+    for r, row in enumerate(oi.cpu().numpy()):
+        full: dict = {}  # group -> members, groups in order of their best member
+        kept = []  # the rows a group's quota admits, best first
+        for i in row:
+            members = full.setdefault(int(grp[i]), [])
+            if len(members) < GRP_TOPK:
+                members.append(int(i))
+                kept.append(int(i))
+        want: dict = {}
+        for i in kept[:GRP_CAP]:
+            want.setdefault(int(grp[i]), []).append(i)
+        if sum(len(m) == GRP_TOPK for m in want.values()) < GRP_COUNT:
+            want = full  # too few full groups in the buffer: the query deepens instead
+        want = dict(list(want.items())[:GRP_COUNT])
+        full = dict(list(full.items())[:GRP_COUNT])
+        t0 = time.perf_counter()
+        docs = col.group_by_query(
+            zt.VectorQuery("vec", vector=qs[r], param=param), group_by_field="grp",
+            group_count=GRP_COUNT, group_topk=GRP_TOPK, output_fields=["grp"],
+        )
+        times.append(time.perf_counter() - t0)
+        got: dict = {}
+        for d in docs:
+            got.setdefault(int(d.fields["grp"]), []).append(int(d.id))
+        if len(got) != GRP_COUNT or any(len(v) > GRP_TOPK for v in got.values()):
+            raise AssertionError(f"{label} group-by: wrong number of groups or members")
+        pairs += sum(got.get(g) == members for g, members in want.items())
+        unlimited += sum(got.get(g) == members for g, members in full.items())
+        leaders += sum(got.get(g, [-1])[0] == members[0] for g, members in want.items())
+        total += len(want)
+    del col._impl._grouped_beam_pass
+    t0 = time.perf_counter()
+    for r in range(GRP_PLAIN_Q):
+        col.query(zt.VectorQuery("vec", vector=qs[r], param=param), topk=K, output_fields=[])
+    plain_ms = (time.perf_counter() - t0) / GRP_PLAIN_Q * 1e3
+    in_beam = sum(p is not None for p in passes)
+    log(f"{label} group-by: ef={ef}: {GRP_Q} group_by_query calls ({GRP_COUNT} groups x {GRP_TOPK}, "
+        f"{GRP_VALUES} values): {pairs}/{total} (query, group) pairs ({pairs / total:.4f}, floor "
+        f"{min_pairs}) equal the grouping of the exact top-{GRP_ORACLE_K} through a buffer of "
+        f"{GRP_CAP} rows ({unlimited / total:.4f} with no buffer limit), {leaders}/{total} group "
+        f"leaders ({leaders / total:.4f}, floor {min_leaders}); {statistics.median(times) * 1e3:.2f} ms "
+        f"per call (median; a plain top-{K} query {plain_ms:.2f} ms, mean of {GRP_PLAIN_Q}); in-beam passes {in_beam} of "
+        f"{len(passes)}")
+    if in_beam != GRP_Q:
+        raise AssertionError(f"{label} group-by: a call did not take the in-beam pass")
+    if pairs < min_pairs * total or leaders < min_leaders * total:
+        raise AssertionError(f"{label} group-by: the grouping is too far from the exact oracle's")
+
+
 def phase_hnsw(workdir: Path, qset, X) -> int:
-    """The HNSW path: build on the card, query at three ef, check, reopen."""
+    """The HNSW path: build on the card, query at three ef, group by, check, reopen."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
     from zvec_tpu_torch.ops.hnsw import hnsw_search
@@ -535,14 +677,17 @@ def phase_hnsw(workdir: Path, qset, X) -> int:
     # reference curve are L2, so only the metric is set (m, efc default)
     schema = zt.CollectionSchema(
         "hnsw1m",
+        fields=[zt.FieldSchema("grp", zt.DataType.INT64)],
         vectors=[zt.VectorSchema("vec", zt.DataType.VECTOR_FP32, D, zt.HnswIndexParam(zt.MetricType.L2))],
     )
+    grp = np.random.default_rng(SEED + 3).integers(0, GRP_VALUES, N)
     path = workdir / "hnsw1m"
     flat_scan_topk.launches = 0
     t0 = time.perf_counter()
     col = zt.create_and_open(str(path), schema)
     for lo in range(0, N, 1024):
-        col.insert([zt.Doc(id=str(i), vectors={"vec": X[i]}) for i in range(lo, min(lo + 1024, N))])
+        col.insert([zt.Doc(id=str(i), vectors={"vec": X[i]}, fields={"grp": int(grp[i])})
+                    for i in range(lo, min(lo + 1024, N))])
     t_insert = time.perf_counter() - t0
     col.optimize()
     t_build = time.perf_counter() - t0 - t_insert
@@ -593,7 +738,9 @@ def phase_hnsw(workdir: Path, qset, X) -> int:
     param = zt.HnswQueryParam(ef=256, done_frac=1.0)
     _profiled(f"hnsw beam batch ef=256 ({Q} queries)", lambda: engine.search(qset[0], K, None, param))
     _profile_build_batch(engine, X)
-    _beam_check(engine)
+    _group_by_check(col, X, grp, qset[0], "hnsw", **GRP_GAUSSIAN)
+    beam_qs = np.random.default_rng(SEED + 2).standard_normal((BEAM_CHECK_Q, D)).astype(np.float32)
+    _beam_check(engine, beam_qs, "hnsw", group_codes=torch.from_numpy(grp.astype(np.int32)))
     col._impl.close()
     del col, seg, engine
     gc.collect()
@@ -614,13 +761,25 @@ def phase_hnsw(workdir: Path, qset, X) -> int:
     return launches
 
 
+def make_clustered(n: int, dim: int, nq: int):
+    """`benchmarks/h2h.py::make_data("clustered", n, dim, nq)`, copied draw
+    for draw (its SEED = 1234): well-separated centres, one per 10,000 rows
+    and at least 32, plus unit noise."""
+    rng = np.random.default_rng(1234)
+    k = max(32, n // 10_000)
+    centers = rng.standard_normal((k, dim)).astype(np.float32) * 5.0
+    asn = rng.integers(0, k, n)
+    X = centers[asn] + rng.standard_normal((n, dim)).astype(np.float32)
+    qn = rng.integers(0, k, nq)
+    queries = centers[qn] + rng.standard_normal((nq, dim)).astype(np.float32)
+    return X, queries
+
+
 def _ivf_data():
     """bench_suite.py's config #4: make_data("clustered", ...) for vectors and
     queries, then tags and prices from default_rng(SEED + 1) with its SEED = 7."""
-    from benchmarks.h2h import make_data
-
     rng = np.random.default_rng(7 + 1)
-    X, queries = make_data("clustered", IVF_N, IVF_D, nq=Q)
+    X, queries = make_clustered(IVF_N, IVF_D, nq=Q)
     tags = rng.integers(0, 10, IVF_N)  # 'tag = tN' selects ~10%
     price = rng.random(IVF_N)
     return X, queries, tags, price
@@ -786,37 +945,233 @@ def phase_ivf(workdir: Path, dev: torch.device) -> int:
     return launches
 
 
+def _bucket_knn_check(engine, X: np.ndarray, dev: torch.device) -> None:
+    """bucket_knn_all on the card against the same call on CPU copies, for the
+    first buckets of the real build on bf16 codes: per half-row the same id
+    set, except ids whose similarity lies within BUCKET_RTOL of the row's
+    kc-th (a near-tie at the boundary)."""
+    from zvec_tpu_torch.ops.hnsw import bucket_knn_all
+
+    info = engine.build_info
+    rows_bkt, slot_bkt = (a[:CL_BUCKETS] for a in info["bucket_sample"])
+    kc = info["kc"]
+    # the buckets' members in a compact row space: the same products, small tables
+    uniq, inv = np.unique(rows_bkt[rows_bkt >= 0], return_inverse=True)
+    rows_c = np.full(rows_bkt.shape, -1, np.int32)
+    rows_c[rows_bkt >= 0] = inv
+    n = len(uniq)
+    codes = torch.from_numpy(X[uniq]).bfloat16()
+    norms2 = torch.from_numpy((X[uniq] ** 2).sum(1))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cand = torch.full((n + 1, 2 * kc), -1, dtype=torch.int32, device=d)
+        t0 = time.perf_counter()
+        bucket_knn_all(torch.from_numpy(rows_c).to(d), torch.from_numpy(slot_bkt).to(d), cand,
+                       codes.to(d), norms2.to(d), metric=engine._search_metric, kc=kc)
+        out[d.type] = (cand[:n].cpu().numpy(), time.perf_counter() - t0)
+    got, ref = out[dev.type][0], out["cpu"][0]
+    vals = codes.double().numpy()
+    differ = bad = 0
+    for half in (0, 1):
+        g, r = got[:, half * kc : (half + 1) * kc], ref[:, half * kc : (half + 1) * kc]
+        rows = np.flatnonzero((np.sort(g, 1) != np.sort(r, 1)).any(1))
+        differ += len(rows)
+        for i in rows:
+            sim = lambda ids: -((vals[ids] - vals[i]) ** 2).sum(1)  # noqa: E731
+            kth = sim(r[i][r[i] >= 0]).min()
+            odd = np.array(sorted(set(g[i].tolist()) ^ set(r[i].tolist())))
+            bad += bool((odd < 0).any()) or bool((np.abs(sim(odd) - kth) > BUCKET_RTOL * abs(kth)).any())
+    filled = int((ref >= 0).any(1).sum())
+    log(f"hnsw clustered: bucket_knn_all card vs CPU on {CL_BUCKETS} buckets of the build "
+        f"(mp {rows_bkt.shape[1]}, kc {kc}, {n} members, bf16 codes): {differ} of {2 * n} half-rows "
+        f"differ ({bad} outside near-ties); card {out[dev.type][1]:.3f} s, CPU {out['cpu'][1]:.2f} s")
+    if bad or filled != n:
+        raise AssertionError("hnsw clustered: bucket_knn_all on the card disagrees with the CPU")
+
+
+def _profile_clustered_batch(engine, X: np.ndarray, dev: torch.device) -> None:
+    """One forward-prune batch and one NN-descent batch of the clustered build
+    (B = 2048 rows, bf16 codes), profiled. The build's own candidate table and
+    first adjacency are gone by now; the final graph's rows stand in for them
+    (a row's neighbours plus those of its best neighbour, 128 lanes)."""
+    from zvec_tpu_torch.ops.hnsw import merge_prune_batch_out, nn_descent_round
+
+    n, m0 = engine._n, engine.m0_out()
+    codes = torch.from_numpy(X).to(dev).bfloat16()
+    norms2 = torch.from_numpy((X * X).sum(1)).to(dev)
+    l0 = engine._dev["l0"][:n]
+    fwd = torch.cat([l0, torch.full((1, m0), -1, dtype=l0.dtype, device=dev)])
+    kc = engine.build_info["kc"]
+    cand = torch.cat([l0, l0[l0[:, 0].long().clamp_min(0)][:, : 2 * kc - m0]], dim=1)
+    cand = torch.cat([cand, torch.full((1, 2 * kc), -1, dtype=l0.dtype, device=dev)])
+    rows = torch.arange(Q_BUILD, device=dev)[None, :]
+    kw = dict(metric=engine._search_metric, max_out=m0)
+    expand = max(1, min(4, 256 // m0))
+    _profiled(f"hnsw clustered forward-prune batch (B={Q_BUILD}, C={2 * kc})",
+              lambda: merge_prune_batch_out(rows, cand, codes, norms2, **kw))
+    _profiled(f"hnsw clustered NN-descent batch (B={Q_BUILD}, expand={expand}, "
+              f"C={m0 * (1 + expand)} -> window {2 * m0})",
+              lambda: nn_descent_round(rows, fwd, codes, norms2, expand=expand, **kw))
+
+
+def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
+    """The clustered build at 2.5M rows, picked by the size rule: build, sweep
+    ef, check the build's pieces card against CPU, reopen."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.ops.hnsw import hnsw_search
+    from zvec_tpu_torch.ops.kmeans import lloyd
+
+    X, queries = make_clustered(CL_N, D, nq=Q)
+    qset = [np.roll(queries, i, axis=0) for i in range(4)]
+    grp = np.random.default_rng(SEED + 3).integers(0, GRP_VALUES, CL_N)
+    schema = zt.CollectionSchema(
+        "hnsw_clustered",
+        fields=[zt.FieldSchema("grp", zt.DataType.INT64)],
+        vectors=[zt.VectorSchema("vec", zt.DataType.VECTOR_FP32, D,
+                                 zt.HnswIndexParam(zt.MetricType.L2, m=50, ef_construction=500))],
+    )
+    path = workdir / "hnsw_clustered"
+    flat_scan_topk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    col = zt.create_and_open(str(path), schema)
+    for lo in range(0, CL_N, 1024):
+        col.insert([zt.Doc(id=str(i), vectors={"vec": X[i]}, fields={"grp": int(grp[i])})
+                    for i in range(lo, min(lo + 1024, CL_N))])
+    t_insert = time.perf_counter() - t0
+    col.optimize()
+    t_build = time.perf_counter() - t0 - t_insert
+    col.flush()
+    launches = flat_scan_topk.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seg = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0)
+    engine = seg.engine_for("vec")
+    bt, info = engine.build_times, engine.build_info
+    log(f"hnsw clustered: {CL_N} x {D}: insert {t_insert:.2f} s, optimize {t_build:.2f} s, of which "
+        f"the engine build (data fetch + graph + upload) {engine.stats.last_build_secs:.2f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in bt.items() if k != "dump_aux")
+        + f"; graph file write {bt['dump_aux']:.2f} s; peak device memory {peak_gb:.3f} GB")
+    log(f"hnsw clustered: build codes {info.get('codes')}, K {info.get('K')} buckets of mp "
+        f"{info.get('mp')} rows, kc {info.get('kc')}, members dropped past mp {info.get('dropped')} "
+        f"of {2 * CL_N}; levels {engine._dev['num_levels']} above L0; K1 launches in the build {launches}")
+    if "bucket_knn" not in bt or not info.get("clustered"):
+        raise AssertionError("hnsw clustered: the size rule did not take the clustered build")
+    if info["codes"] != "bfloat16":
+        raise AssertionError(f"hnsw clustered: build codes were {info['codes']}, not bfloat16")
+    if launches != 0:
+        raise AssertionError("hnsw clustered: the clustered build launched the flat-scan kernel")
+    if not (engine._codes.is_cuda and engine._dev["l0"].is_cuda):
+        raise AssertionError("hnsw clustered: codes or the L0 adjacency are not on CUDA")
+    vbits = engine._visited_bits(engine._query_knobs(None))
+    if engine._codes.shape[0] <= (1 << 21) or vbits != 21:
+        raise AssertionError("hnsw clustered: the beam does not use the hashed visited set")
+
+    xd = torch.from_numpy(X).to(dev)
+    _, oi = _exact_oracle(xd, torch.from_numpy(queries).to(dev))
+    del xd
+    torch.cuda.empty_cache()
+    exp = oi[:, :K].cpu().numpy()
+    recalls, ids_by_ef = {}, {}
+    col.batch_query_many("vec", qset, topk=K, output_fields=[], param=zt.HnswQueryParam(ef=CL_EFS[0]))  # warm
+    for ef in CL_EFS:
+        param = zt.HnswQueryParam(ef=ef)  # the recipe's own: every other knob at its default
+        first = col.batch_query("vec", queries, topk=K, output_fields=[], param=param)
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = col.batch_query_many("vec", qset, topk=K, output_fields=[], param=param)
+            times.append((time.perf_counter() - t1) / len(qset))
+        batch_s = min(times)
+        got = _ids(first)
+        scores = np.array([[d.score for d in docs] for docs in first], np.float32)
+        if got.shape != (Q, K) or not np.isfinite(scores).all() or len(out) != len(qset):
+            raise AssertionError("hnsw clustered: results are not (1024, 10) finite scores")
+        recalls[ef], ids_by_ef[ef] = _recall(got, exp), got
+        log(f"hnsw clustered: ef={ef}: {batch_s * 1e3:.2f} ms per 1024-query batch, "
+            f"{Q / batch_s:.1f} qps (batch_query_many, {len(qset)} blocks, best of 2; "
+            f"{hnsw_search.last_steps} beam steps in the last batch, visited_bits {vbits}); "
+            f"recall@{K} {recalls[ef]:.4f} on {Q} queries (zvec_tpu at 10M rows: {CL_REF_CURVE_10M[ef]})")
+    for ef, floor in CL_FLOORS.items():
+        if recalls[ef] < floor:
+            raise AssertionError(f"hnsw clustered: recall@10 at ef={ef} is {recalls[ef]:.4f} < {floor}")
+
+    _group_by_check(col, X, grp, queries, "hnsw clustered", **GRP_CLUSTERED)
+    _beam_check(engine, queries[:BEAM_CHECK_Q], "hnsw clustered", visited_bits=vbits,
+                group_codes=torch.from_numpy(grp.astype(np.int32)))
+    _bucket_knn_check(engine, X, dev)
+    _profile_clustered_batch(engine, X, dev)
+    col._impl.close()
+    del col, seg, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = lloyd.calls
+    reopened = zt.open(str(path))
+    again = _ids(reopened.batch_query("vec", queries, topk=K, output_fields=[],
+                                      param=zt.HnswQueryParam(ef=CL_EFS[-1])))
+    eng2 = next(s for s in reopened._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
+    loaded = eng2._loaded_aux is not None and not eng2.build_times
+    reopened._impl.close()
+    if lloyd.calls != calls or not loaded or flat_scan_topk.launches != launches:
+        raise AssertionError("hnsw clustered: the reopened collection rebuilt its graph")
+    if not (again == ids_by_ef[CL_EFS[-1]]).all():
+        raise AssertionError("hnsw clustered: reopened collection returns other ids")
+    log("hnsw clustered: reopened collection loads the graph from disk (no k-means, no prune, "
+        "no kernel launch) and returns identical ids")
+    return launches
+
+
 def main() -> None:
+    phases = PHASES
+    if len(sys.argv) > 1:
+        if len(sys.argv) != 3 or sys.argv[1] != "--phases" or not set(sys.argv[2].split(",")) <= set(PHASES):
+            raise SystemExit(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
+        phases = tuple(sys.argv[2].split(","))
     smi = phase_toolchain()
     phase_build()
-    case = phase_kernel_vs_plain()
-    torch.cuda.empty_cache()
-    build_case = phase_kernel_build_shape()
-    torch.cuda.empty_cache()
-    qset, X = _data()
+    dev = torch.device("cuda")
+    case = build_case = None
+    launches = {}
+    if "kernel" in phases:
+        case = phase_kernel_vs_plain()
+        torch.cuda.empty_cache()
+        build_case = phase_kernel_build_shape()
+        torch.cuda.empty_cache()
     workdir = REPO / "zvec_tpu_torch" / "_build" / "smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     try:
-        flat_launches = phase_main_path(workdir, qset, X)
-        gc.collect()
-        torch.cuda.empty_cache()
-        hnsw_launches = phase_hnsw(workdir, qset, X)
-        del qset, X
-        gc.collect()
-        torch.cuda.empty_cache()
-        ivf_launches = phase_ivf(workdir, torch.device("cuda"))
+        if "flat" in phases or "hnsw" in phases:
+            qset, X = _data()
+            if "flat" in phases:
+                launches["flat_search"] = phase_main_path(workdir, qset, X)
+                gc.collect()
+                torch.cuda.empty_cache()
+            if "hnsw" in phases:
+                launches["hnsw_build"] = phase_hnsw(workdir, qset, X)
+            del qset, X
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "ivf" in phases:
+            launches["ivf"] = phase_ivf(workdir, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "clustered" in phases:
+            launches["hnsw_clustered_build"] = phase_hnsw_clustered(workdir, dev)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(smi)
+    if phases != PHASES:
+        log(f"partial run ({','.join(phases)}): no result line")
+        return
     print(json.dumps({"kernels": [{
         "name": "flat_scan_topk (stage one: fused scan + group-max top-k)",
         "route": "cuda",
         "source": "zvec_tpu_torch/csrc/flat_scan.cu",
         "replaces": "zvec_tpu/ops/flat_pallas.py:92",
-        "launches": flat_launches + hnsw_launches + ivf_launches,
-        "launches_by_path": {"flat_search": flat_launches, "hnsw_build": hnsw_launches,
-                             "ivf": ivf_launches},
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": case["max_abs_err"],
         "ms": case["ms"],
         "plain_ms": case["plain_ms"],

@@ -1,0 +1,454 @@
+"""Group-by: zvec_tpu_torch against zvec_tpu on the CPU.
+
+`_grouped_merge` and the grouped beam run on the same numpy inputs in both
+packages (the beam on one graph built by zvec_tpu): ids and group codes must
+be equal, similarities within 1e-5 relative or 1e-4 absolute (float32 sums in
+another order; the L2 expansion cancels |q|^2 + |x|^2 ~ 64). `group_by_query`
+goes through both public APIs on FLAT, IVF and HNSW collections filled with
+the same documents: the same ids in the same order, scores within 1e-4. Configurations without a grouped beam (MIPS, hamming,
+quantized, linear, a corpus below the brute-force threshold) return None from
+`HnswEngine.search_grouped` in both packages and are answered by iterative
+deepening.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import zvec_tpu  # noqa: E402
+import zvec_tpu_torch  # noqa: E402
+from zvec_tpu.core import hnsw as jcore  # noqa: E402
+from zvec_tpu.ops import hnsw as jops  # noqa: E402
+from zvec_tpu_torch.core import hnsw as tcore  # noqa: E402
+from zvec_tpu_torch.ops import hnsw as tops  # noqa: E402
+from zvec_tpu_torch.ops.runtime import NEG_INF  # noqa: E402
+
+PKGS = {"jax": zvec_tpu, "torch": zvec_tpu_torch}
+N, D, NG = 5000, 32, 40
+
+
+# ------------------------------------------------------------ _grouped_merge
+def _merge_both(bufs, adds, group_topk):
+    got = tops._grouped_merge(
+        *(torch.from_numpy(a).long() if a.dtype != np.float32 else torch.from_numpy(a) for a in bufs + adds),
+        group_topk,
+    )
+    ref = jops._grouped_merge(*(jnp.asarray(a) for a in bufs + adds), group_topk)
+    return [g.numpy() for g in got], [np.asarray(r) for r in ref]
+
+
+def test_grouped_merge_per_group_cap():
+    """The case of zvec_tpu's own test, on both packages."""
+    r = 8
+    bufs = [np.full((1, r), NEG_INF, np.float32), np.full((1, r), -1, np.int32), np.full((1, r), -1, np.int32)]
+    adds = [
+        np.array([[0.9, 0.8, 0.7, 0.6, 0.95, 0.5, 0.4, 0.3]], np.float32),
+        np.array([[10, 11, 12, 13, 20, 30, 31, -1]], np.int32),
+        np.array([[0, 0, 0, 0, 1, 2, 2, 5]], np.int32),
+    ]
+    (s, i, g), ref = _merge_both(bufs, adds, 2)
+    kept = {(int(a), int(b)) for a, b in zip(i[0][i[0] >= 0], g[0][i[0] >= 0])}
+    assert kept == {(10, 0), (11, 0), (20, 1), (30, 2), (31, 2)}
+    assert list(s[0][:5]) == sorted(s[0][:5], reverse=True) and (i[0][5:] == -1).all()
+    for a, b in zip((s, i, g), ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("group_topk", [1, 2, 3])
+@pytest.mark.parametrize("r,w", [(16, 24), (64, 40), (8, 100)])
+def test_grouped_merge_random_buffers_match_jax(r, w, group_topk):
+    """Random buffers with score ties, repeated ids (adjacent equal rows, as
+    the byte-map beam can produce), invalid lanes and rows without a group."""
+    rng = np.random.default_rng(r * 100 + w + group_topk)
+    nq = 7
+    s = np.round(rng.standard_normal((nq, r + w)), 1).astype(np.float32)  # ties
+    i = rng.permutation(1000)[: r + w][None, :].repeat(nq, 0).astype(np.int32)
+    i = rng.permuted(i, axis=1)
+    g = (i % 6).astype(np.int32)  # a row's group follows its id
+    i[:, r + 3] = i[:, r + 2]  # a repeated id with the same score and group
+    s[:, r + 3] = s[:, r + 2]
+    g[:, r + 3] = g[:, r + 2]
+    drop = rng.random((nq, r + w)) < 0.15
+    i[drop] = -1
+    g[rng.random((nq, r + w)) < 0.1] = -1
+    s[i < 0] = NEG_INF
+    # the carried buffer is what an earlier merge left: sorted desc, invalid last
+    order = np.argsort(-s[:, :r], axis=1, kind="stable")
+    bufs = [np.take_along_axis(a[:, :r], order, 1) for a in (s, i, g)]
+    adds = [a[:, r:] for a in (s, i, g)]
+    got, ref = _merge_both(bufs, adds, group_topk)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    gs, gi, gg = got
+    for q in range(nq):
+        ok = gi[q] >= 0
+        assert (gg[q][~ok] == -1).all() and (gs[q][~ok] == NEG_INF).all()
+        _, counts = np.unique(gg[q][ok], return_counts=True)
+        assert (counts <= group_topk).all()
+
+
+# ----------------------------------------------------------- the grouped beam
+@pytest.fixture(scope="module")
+def jax_graph():
+    """One graph built by zvec_tpu; both beams run on its arrays."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    eng = jcore.HnswEngine(
+        zvec_tpu.MetricType.L2, D, zvec_tpu.HnswIndexParam(zvec_tpu.MetricType.L2, m=16, ef_construction=100)
+    )
+    eng.bind_data(lambda: x, lambda: 1)
+    eng._ensure_fresh()
+    groups = rng.integers(0, NG, N).astype(np.int32)
+    groups[rng.random(N) < 0.02] = -1  # rows without a group code
+    return eng, x, groups
+
+
+@pytest.mark.parametrize(
+    "group_topk,cap,filtered,visited_bytes",
+    [(1, 64, False, False), (3, 64, False, False), (1, 256, True, False), (3, 256, True, False),
+     (2, 64, True, False), (2, 64, False, True)],
+)
+def test_grouped_beam_matches_jax(jax_graph, group_topk, cap, filtered, visited_bytes):
+    eng, x, groups = jax_graph
+    rng = np.random.default_rng(6)
+    q = (x[rng.integers(0, N, 8)] + 0.01).astype(np.float32)
+    n_pad = eng._codes.shape[0]
+    codes_pad = np.full(n_pad, -1, np.int32)
+    codes_pad[:N] = groups
+    mask = None
+    if filtered:
+        mask = np.zeros(n_pad, bool)
+        mask[:N] = groups < 20
+    g = eng._dev
+    kw = dict(ef=64, topk=1, max_steps=128, num_levels=g["num_levels"], frontier=4,
+              visited_bits=12 if visited_bytes else 0, visited_bytes=visited_bytes,
+              done_frac=1.0, group_cap=cap, group_topk=group_topk)
+    ref = jops.hnsw_search_grouped(
+        jnp.asarray(q), eng._codes, eng._norms, g["l0"], g["upper_ids"], g["upper_nbrs"],
+        g["upper_down"], g["entry_rows"], None if mask is None else jnp.asarray(mask),
+        jnp.int32(10_000), jnp.asarray(codes_pad), None, metric=zvec_tpu.MetricType.L2, **kw,
+    )
+    t = lambda a, dt=None: torch.from_numpy(np.array(a)).to(dt) if dt else torch.from_numpy(np.array(a))  # noqa: E731
+    got = tops.hnsw_search(
+        torch.from_numpy(q), t(eng._codes), t(eng._norms), t(g["l0"]),
+        [t(a, torch.long) for a in g["upper_ids"]], [t(a, torch.long) for a in g["upper_nbrs"]],
+        [t(a, torch.long) for a in g["upper_down"]], [int(r) for r in np.asarray(g["entry_rows"])],
+        None if mask is None else torch.from_numpy(mask), 10_000, None,
+        metric=zvec_tpu_torch.MetricType.L2, group_codes=torch.from_numpy(codes_pad), **kw,
+    )
+    assert len(got) == len(ref) == 5
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))  # the plain result rides along
+    gs, gi, gg = (a.numpy() for a in got[2:])
+    np.testing.assert_array_equal(gi, np.asarray(ref[3]))
+    np.testing.assert_array_equal(gg, np.asarray(ref[4]))
+    np.testing.assert_allclose(gs, np.asarray(ref[2]), rtol=1e-5, atol=1e-4)
+    assert gs.shape == (8, cap)
+    ok = gi >= 0
+    assert (groups[gi[ok]] == gg[ok]).all()
+    if filtered:
+        assert (gg[ok] < 20).all() and (gg[ok] >= 0).all()
+    for row in range(8):
+        _, counts = np.unique(gg[row][ok[row]], return_counts=True)
+        assert counts.max() <= group_topk
+        assert len(counts) >= min(10, cap // group_topk)  # many groups from one beam
+
+
+def test_beam_without_groups_returns_pair(jax_graph):
+    eng, x, _ = jax_graph
+    g = eng._dev
+    t = lambda a, dt=None: torch.from_numpy(np.array(a)).to(dt) if dt else torch.from_numpy(np.array(a))  # noqa: E731
+    out = tops.hnsw_search(
+        torch.from_numpy(x[:3]), t(eng._codes), t(eng._norms), t(g["l0"]),
+        [t(a, torch.long) for a in g["upper_ids"]], [t(a, torch.long) for a in g["upper_nbrs"]],
+        [t(a, torch.long) for a in g["upper_down"]], [int(r) for r in np.asarray(g["entry_rows"])],
+        None, 10_000, None, metric=zvec_tpu_torch.MetricType.L2, ef=32, topk=5, max_steps=96,
+        num_levels=g["num_levels"], group_codes=torch.zeros(eng._codes.shape[0], dtype=torch.int32),
+    )
+    assert len(out) == 2 and out[1][:, 0].tolist() == [0, 1, 2]  # group_cap = 0: off
+
+
+# ------------------------------------------------ group_by_query, both packages
+def _index_param(pkg, kind, metric="L2", **kw):
+    mt = pkg.MetricType[metric]
+    if kind == "flat":
+        return pkg.FlatIndexParam(mt, **kw)
+    if kind == "ivf":
+        return pkg.IVFIndexParam(mt, n_list=16, **kw)
+    return pkg.HnswIndexParam(mt, m=16, ef_construction=100, **kw)
+
+
+def _collection(pkg, path, kind, x, cats, metric="L2", optimize=True, **kw):
+    schema = pkg.CollectionSchema(
+        "group_by",
+        fields=[pkg.FieldSchema("cat", pkg.DataType.INT64), pkg.FieldSchema("name", pkg.DataType.STRING, nullable=True)],
+        vectors=[pkg.VectorSchema("vec", pkg.DataType.VECTOR_FP32, x.shape[1], _index_param(pkg, kind, metric, **kw))],
+    )
+    col = pkg.create_and_open(str(path), schema)
+    for lo in range(0, len(x), 1000):
+        col.insert([
+            pkg.Doc(id=str(i), vectors={"vec": x[i]},
+                    fields={"cat": int(cats[i]), "name": None if i % 11 == 0 else f"n{cats[i] % 7}"})
+            for i in range(lo, min(lo + 1000, len(x)))
+        ])
+    if optimize:
+        col.optimize()
+    return col
+
+
+def _data(n=N, seed=5):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n, D)).astype(np.float32), rng.integers(0, NG, n)
+
+
+@pytest.fixture(scope="module", params=["flat", "ivf", "hnsw"])
+def pair(request, tmp_path_factory):
+    root = tmp_path_factory.mktemp(f"gb_{request.param}")
+    n = N if request.param == "hnsw" else 2000
+    x, cats = _data(n)
+    cols = {name: _collection(pkg, root / name, request.param, x, cats) for name, pkg in PKGS.items()}
+    yield request.param, cols, x, cats
+    for c in cols.values():
+        c._impl.close()
+
+
+def _run(pkg, col, q, kind, **kw):
+    param = pkg.HnswQueryParam(ef=64) if kind == "hnsw" else None
+    docs = col.group_by_query(pkg.VectorQuery("vec", vector=q, param=param), output_fields=["cat", "name"], **kw)
+    return [(d.id, d.fields["cat"], d.fields["name"]) for d in docs], np.array([d.score for d in docs])
+
+
+GROUP_CASES = [
+    dict(group_by_field="cat", group_count=10, group_topk=2),
+    dict(group_by_field="cat", group_count=5, group_topk=2, filter="cat < 20"),
+    dict(group_by_field="cat", group_count=3, group_topk=1),
+    dict(group_by_field="name", group_count=4, group_topk=3),  # strings, with a NULL group
+    dict(group_by_field="cat", group_count=NG + 10, group_topk=1),  # more groups than exist
+]
+
+
+@pytest.mark.parametrize("case", range(len(GROUP_CASES)))
+def test_group_by_query_matches_jax(pair, case):
+    kind, cols, x, cats = pair
+    kw = GROUP_CASES[case]
+    for qi in (123, 55):
+        q = x[qi] + 0.01
+        (ja, jsc), (ta, tsc) = (_run(PKGS[k], cols[k], q, kind, **kw) for k in ("jax", "torch"))
+        assert ta == ja
+        assert np.allclose(tsc, jsc, rtol=1e-4, atol=1e-4)
+        # the contract itself: runs of one group, quotas, leaders ascending (L2)
+        field = 1 if kw["group_by_field"] == "cat" else 2
+        runs = []
+        for (doc_id, *fields), score in zip(ta, tsc):
+            key = fields[field - 1]
+            if not runs or runs[-1][0] != key:
+                runs.append((key, []))
+            runs[-1][1].append(score)
+        keys = [k for k, _ in runs]
+        assert len(set(keys)) == len(keys) == min(kw["group_count"], len(set(keys)))
+        if kw["group_count"] > NG:
+            assert len(keys) == NG
+        elif kw["group_by_field"] == "cat":
+            assert len(keys) == kw["group_count"]
+        assert all(1 <= len(v) <= kw["group_topk"] and v == sorted(v) for _, v in runs)
+        leaders = [v[0] for _, v in runs]
+        assert leaders == sorted(leaders)
+        if "filter" in kw:
+            assert all(c < 20 for _, c, _ in ta)
+
+
+def test_group_by_typed_query_and_unknown_field(pair):
+    kind, cols, x, _ = pair
+    out = {}
+    for name, pkg in PKGS.items():
+        gq = pkg.GroupByVectorQuery("vec", vector=x[0], group_by_field="cat", group_count=3, group_topk=2)
+        out[name] = [d.id for d in cols[name].group_by_query(gq)]
+        with pytest.raises(Exception):
+            cols[name].group_by_query(pkg.VectorQuery("vec", vector=x[0]), group_by_field="nope")
+        with pytest.raises(ValueError):
+            pkg.GroupByVectorQuery("vec", vector=x[0])
+        with pytest.raises(ValueError):
+            pkg.GroupByVectorQuery("vec", vector=x[0], group_by_field="cat", group_count=0)
+    assert out["torch"] == out["jax"] and out["torch"][0] == "0"
+
+
+def test_hnsw_beam_pass_engages_and_covers(pair):
+    """On a sealed HNSW segment the groups come from one beam pass."""
+    kind, cols, x, cats = pair
+    if kind != "hnsw":
+        for name, pkg in PKGS.items():  # FLAT and IVF engines have no grouped beam
+            impl = cols[name]._impl
+            rows = impl._grouped_beam_pass(
+                pkg.VectorQuery("vec", vector=x[7]), x[7][None, :], "cat", 10, 2, None, impl._segments_snapshot()
+            )
+            assert rows is None
+        return
+    got = {}
+    for name, pkg in PKGS.items():
+        impl = cols[name]._impl
+        q = (x[7] + 0.01).astype(np.float32)
+        rows = impl._grouped_beam_pass(
+            pkg.VectorQuery("vec", vector=q, param=pkg.HnswQueryParam(ef=64)), q[None, :],
+            "cat", 10, 2, None, impl._segments_snapshot(),
+        )
+        assert rows is not None
+        by_group = {}
+        for sim, doc_id, key in rows:
+            assert cats[doc_id] == key
+            by_group.setdefault(key, []).append(sim)
+        assert len(by_group) >= 10 and all(len(v) <= 2 for v in by_group.values())
+        assert sum(len(v) >= 2 for v in by_group.values()) >= 10
+        got[name] = sorted((d, k) for _, d, k in rows)
+    assert got["torch"] == got["jax"]
+    # the device copy of the group column is cached by (field, write version)
+    eng = next(s for s in cols["torch"]._impl._segments_snapshot() if s.doc_count).engine_for("vec")
+    assert eng._group_dev_cache[0][0] == "cat" and eng._group_dev_cache[1].dtype == torch.int32
+
+
+def test_group_leaders_are_exact(pair):
+    """Each group's leader is that group's true nearest row (at least 8 of
+    10 on the approximate indexes, as zvec_tpu's own test asks)."""
+    kind, cols, x, cats = pair
+    q = x[123] + 0.01
+    ids, _ = _run(zvec_tpu_torch, cols["torch"], q, kind, group_by_field="cat", group_count=10, group_topk=2)
+    d2 = ((x - q) ** 2).sum(1)
+    leaders = {}
+    for doc_id, cat, _ in ids:
+        leaders.setdefault(cat, int(doc_id))
+    exact = sum(int(np.flatnonzero(cats == c)[np.argmin(d2[cats == c])]) == lead for c, lead in leaders.items())
+    assert exact >= (10 if kind == "flat" else 8)
+
+
+# ------------------------------------- configurations without a grouped beam
+FALLBACKS = [
+    ("IP", {}, None, 2000),  # MIPS: the graph lives in an augmented L2 space
+    ("L2", {"quantize_type": "INT8"}, None, 2000),
+    ("COSINE", {"quantize_type": "FP16"}, None, 2000),
+    ("L2", {}, "linear", 2000),
+    ("L2", {}, None, 600),  # below brute_force_threshold (1,000 rows)
+]
+
+
+@pytest.mark.parametrize("metric,kw,mode,n", FALLBACKS)
+def test_search_grouped_returns_none_and_query_deepens(tmp_path, metric, kw, mode, n):
+    x, cats = _data(n, seed=9)
+    out = {}
+    for name, pkg in PKGS.items():
+        ikw = {k: pkg.QuantizeType[v] for k, v in kw.items()}
+        col = _collection(pkg, tmp_path / name, "hnsw", x, cats, metric=metric, **ikw)
+        param = pkg.HnswQueryParam(ef=64, is_linear=mode == "linear")
+        eng = next(s for s in col._impl._segments_snapshot() if s.doc_count).engine_for("vec")
+        assert eng.search_grouped(x[:1], None, param, cats.astype(np.int32), 2, 64) is None
+        docs = col.group_by_query(
+            pkg.VectorQuery("vec", vector=x[3], param=param), group_by_field="cat",
+            group_count=4, group_topk=2, output_fields=["cat"],
+        )
+        out[name] = ([(d.id, d.fields["cat"]) for d in docs], [d.score for d in docs])
+        col._impl.close()
+    assert out["torch"][0] == out["jax"][0]
+    assert np.allclose(out["torch"][1], out["jax"][1], rtol=1e-3, atol=1e-3)
+    assert len({c for _, c in out["torch"][0]}) == 4 and out["torch"][0][0][0] == "3"
+
+
+def test_hamming_search_grouped_returns_none():
+    p = zvec_tpu_torch
+    bits = np.random.default_rng(10).integers(0, 2**32, (1500, 2), dtype=np.uint64).astype(np.uint32)
+    eng = tcore.HnswEngine(p.MetricType.HAMMING, 64, p.HnswIndexParam(p.MetricType.HAMMING, m=8, ef_construction=40))
+    eng.bind_data(lambda: bits, lambda: 1)
+    assert eng.search_grouped(bits[:1], None, None, np.zeros(1500, np.int32), 2, 64) is None
+
+
+def test_empty_engine_search_grouped_returns_none():
+    p = zvec_tpu_torch
+    eng = tcore.HnswEngine(p.MetricType.L2, D, p.HnswIndexParam(p.MetricType.L2))
+    eng.bind_data(lambda: np.zeros((0, D), np.float32), lambda: 1)
+    eng._ensure_fresh()
+    assert eng.search_grouped(np.zeros((1, D), np.float32), None, None, np.zeros(0, np.int32), 2, 64) is None
+
+
+def test_group_by_skewed_groups(tmp_path):
+    """One giant group fills the neighbourhood (zvec_tpu's own case): the
+    search widens until `group_count` full groups are found."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal(8).astype(np.float32)
+    vecs = [q + rng.standard_normal(8).astype(np.float32) * 0.01 for _ in range(500)]
+    names = ["big"] * 500
+    for gi in range(4):
+        for _ in range(2):
+            vecs.append(q + 10.0 * (gi + 1) + rng.standard_normal(8).astype(np.float32))
+            names.append(f"tiny{gi}")
+    out = {}
+    for name, pkg in PKGS.items():
+        schema = pkg.CollectionSchema(
+            "skewed", fields=[pkg.FieldSchema("grp", pkg.DataType.STRING)],
+            vectors=[pkg.VectorSchema("e", pkg.DataType.VECTOR_FP32, 8, pkg.FlatIndexParam(pkg.MetricType.L2))],
+        )
+        col = pkg.create_and_open(str(tmp_path / name), schema)
+        docs = [pkg.Doc(id=f"d{i}", vectors={"e": v}, fields={"grp": g}) for i, (v, g) in enumerate(zip(vecs, names))]
+        for lo in range(0, len(docs), 500):
+            col.insert(docs[lo : lo + 500])
+        res = col.group_by_query(pkg.VectorQuery("e", vector=q), group_by_field="grp", group_count=5, group_topk=2)
+        out[name] = [(r.id, r.field("grp")) for r in res]
+        col._impl.close()
+    assert out["torch"] == out["jax"]
+    groups = {}
+    for doc_id, g in out["torch"]:
+        groups.setdefault(g, []).append(doc_id)
+    assert len(groups) == 5 and all(len(v) == 2 for v in groups.values())
+
+
+def test_group_by_disconnected_clusters(tmp_path):
+    """Well-separated clusters give a cluster-local graph (zvec_tpu's own
+    case): the beam exhausts one component and group-by escalates to the
+    exact pass to honour group_count."""
+    rng = np.random.default_rng(12)
+    dim, per, topics = 24, 700, ["a", "b", "c"]
+    centers = {t: rng.standard_normal(dim).astype(np.float32) * 6 for t in topics}
+    vecs = [centers[topics[i % 3]] + rng.standard_normal(dim).astype(np.float32) for i in range(per * 3)]
+    q = centers["a"] + 0.2 * rng.standard_normal(dim).astype(np.float32)
+    out = {}
+    for name, pkg in PKGS.items():
+        schema = pkg.CollectionSchema(
+            "disconnected", fields=[pkg.FieldSchema("topic", pkg.DataType.STRING)],
+            vectors=[pkg.VectorSchema("v", pkg.DataType.VECTOR_FP32, dim, pkg.HnswIndexParam(pkg.MetricType.L2, m=16))],
+        )
+        col = pkg.create_and_open(str(tmp_path / name), schema)
+        docs = [pkg.Doc(id=f"d{i}", fields={"topic": topics[i % 3]}, vectors={"v": v}) for i, v in enumerate(vecs)]
+        for lo in range(0, len(docs), 1000):
+            col.insert(docs[lo : lo + 1000])
+        col.optimize()
+        hits = col.group_by_query(
+            pkg.VectorQuery("v", vector=q), group_by_field="topic", group_count=3, group_topk=2,
+            output_fields=["topic"],
+        )
+        out[name] = [(h.id, h.fields["topic"]) for h in hits]
+        col._impl.close()
+    assert out["torch"] == out["jax"]
+    got = {}
+    for doc_id, t in out["torch"]:
+        got.setdefault(t, []).append(doc_id)
+    assert set(got) == {"a", "b", "c"} and all(len(v) == 2 for v in got.values())
+
+
+def test_group_by_on_unsealed_hnsw_segment(tmp_path):
+    """Rows still in the writing segment have no graph: no beam pass, the
+    same answer by deepening."""
+    x, cats = _data(800, seed=13)
+    out = {}
+    for name, pkg in PKGS.items():
+        col = _collection(pkg, tmp_path / name, "hnsw", x, cats, optimize=False)
+        docs = col.group_by_query(
+            pkg.VectorQuery("vec", vector=x[5]), group_by_field="cat", group_count=6, group_topk=2,
+            output_fields=["cat"],
+        )
+        out[name] = [(d.id, d.fields["cat"]) for d in docs]
+        col._impl.close()
+    assert out["torch"] == out["jax"] and out["torch"][0][0] == "5"
+
+
+def test_group_by_vector_query_is_exported():
+    assert zvec_tpu_torch.GroupByVectorQuery is zvec_tpu_torch.model.param.GroupByVectorQuery
+    assert "GroupByVectorQuery" in zvec_tpu_torch.__all__

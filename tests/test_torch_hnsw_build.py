@@ -231,10 +231,23 @@ def test_device_branch_build_matches_jax(metric):
         assert recall(ti) >= 0.85
 
 
+def test_clustered_build_option_is_admitted():
+    """`clustered_build=True` builds (tests/test_torch_hnsw_clustered.py holds
+    the build to zvec_tpu's); below 4,096 rows it is the host build."""
+    X = np.random.default_rng(15).standard_normal((300, DIM)).astype(np.float32)
+    out = []
+    for kw in ({"clustered_build": True}, {}):
+        _, (_, te) = _build_pair("L2", 300, 15, **kw)
+        out.append(te)
+        assert te.build_info == {} and "bucket_knn" not in te.build_times
+        _, idx = te.search(X[:3], 1)
+        assert idx[:, 0].tolist() == [0, 1, 2]
+    np.testing.assert_array_equal(out[0]._graph.l0, out[1]._graph.l0)
+
+
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"clustered_build": True}, "clustered_build"),
         ({"route_quantize": "int8"}, "route_quantize"),
         ({"route_quantize": "bf16"}, "route_quantize"),
     ],

@@ -126,14 +126,22 @@ def test_query_and_filtered_query(pair):
             assert all(d.field("price") < 20 for d in b)
 
 
-def test_group_by_on_hnsw_raises(pair):
-    _, ct = pair
+def test_group_by_on_hnsw_matches_jax(pair):
+    """Group-by on the default HNSW field (metric IP, so the graph lives in
+    the MIPS-augmented space and `search_grouped` hands over to iterative
+    deepening): admitted, and equal to zvec_tpu's answer."""
+    cj, ct = pair
     _, Q = _vectors()
-    with pytest.raises(NotImplementedError, match="group-by"):
-        ct.group_by_query(
-            zvec_tpu_torch.VectorQuery("emb", vector=Q[0]), group_by_field="tag",
+    out = []
+    for pkg, col in ((zvec_tpu, cj), (zvec_tpu_torch, ct)):
+        docs = col.group_by_query(
+            pkg.VectorQuery("emb", vector=Q[0]), group_by_field="tag",
             group_count=3, group_topk=2,
         )
+        out.append(([(d.id, d.field("tag")) for d in docs], [[d.score for d in docs]]))
+    assert out[0][0] == out[1][0]
+    assert np.allclose(out[0][1], out[1][1], rtol=1e-4, atol=1e-4)
+    assert len({t for _, t in out[1][0]}) == 3 and len(out[1][0]) == 6
 
 
 def test_reopen_loads_graph_from_disk(tmp_path):

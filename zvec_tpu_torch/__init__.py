@@ -11,9 +11,12 @@ binary codes); HNSW is the default index of a vector field, as in the
 reference. Its graph is built on the card (an exact kNN graph whose forward
 pass runs the CUDA flat scan) and searched with a batched beam. IVF trains
 k-means on the card (SOAR-spilled lists optional) and probes its lists in
-batches there. Sparse fields, group-by on an HNSW field, multi-vector queries
-and multi-GPU sharding raise `NotImplementedError` until they are ported;
-embedding functions and rerankers are not exported yet.
+batches there. Layers of more than 2,000,000 rows take the clustered build
+(k-means buckets, per-bucket exact kNN, one NN-descent round).
+`Collection.group_by_query` runs on every index; on an HNSW field it harvests
+the groups inside the beam. Sparse fields, multi-vector queries and multi-GPU
+sharding raise `NotImplementedError` until they are ported; embedding
+functions and rerankers are not exported yet.
 """
 
 from . import model as model
@@ -33,7 +36,7 @@ from .model.param import (
     IVFQueryParam,
     OptimizeOption,
 )
-from .model.param.vector_query import VectorQuery
+from .model.param.vector_query import GroupByVectorQuery, VectorQuery
 from .model.schema import CollectionSchema, CollectionStats, FieldSchema, VectorSchema
 from .typing import (
     DataType,
@@ -67,6 +70,7 @@ __all__ = [
     "CollectionStats",
     # parameters
     "VectorQuery",
+    "GroupByVectorQuery",
     "InvertIndexParam",
     "HnswIndexParam",
     "FlatIndexParam",

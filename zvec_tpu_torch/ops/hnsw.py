@@ -1,5 +1,6 @@
-"""HNSW device ops in PyTorch: batched greedy descent + L0 beam search, and
-the batched kNN-graph build steps (forward kNN + prune, merge + prune).
+"""HNSW device ops in PyTorch: batched greedy descent + L0 beam search (with
+an optional in-beam per-group harvest), and the batched kNN-graph build steps
+(exact or cluster-local candidates, prune, NN-descent round, merge + prune).
 
 Port of `zvec_tpu/ops/hnsw.py`. Queries run in lockstep batches; each beam
 step gathers the padded neighbour lists of F frontier nodes per query, scores
@@ -14,9 +15,14 @@ The build's forward kNN pass scores every batch with the fused flat scan
 (`ops/flat_scan.py::flat_scan_topk`, the CUDA kernel on the card) for
 knn_k <= 127, and with the exact blockwise torch scan above that.
 
-`assign_top2_blocked` (two nearest centroids per row, blocked over N) serves
-the IVF SOAR spill (`ops/kmeans.py::assign_top2`); the JAX module's int8-row
-branch of it belongs to the clustered build and is not ported yet.
+The clustered build (layers past 2M rows) takes its candidates from k-means
+buckets instead of full scans: `assign_top2_blocked` (two nearest centroids
+per row, blocked over N; fp32, bf16 or int8 rows; it also serves the IVF SOAR
+spill, `ops/kmeans.py::assign_top2`), `bucket_knn_all` (exact top-kc inside
+every bucket), then `merge_prune_batch_out`, `nn_descent_round` and
+`merge_prune_chunk_out`, which share one prune body (`_merge_prune_ids`) with
+`merge_prune_step`. Build codes may be fp32, bf16 or symmetric int8; they keep
+their dtype on every gather and are multiplied in float32.
 
 Graph layout (tensors on one device):
   codes      (N_pad, D)          vectors (f32 / f16 / int8 / packed int4)
@@ -29,8 +35,9 @@ Graph layout (tensors on one device):
 
 Left out against the JAX module: the bf16 hi/lo product splits (an MXU pass
 trick; products here are full float32, TF32 off), `approx_max_k` (accepted
-and run exact), the grouped beam, the routed refine tier, and the packed D2H
-transfer (`hnsw_search_packed`, a TPU workaround: this returns tensors).
+and run exact, in the beam's merges and in `bucket_knn_all`), the routed
+refine tier, and the packed D2H transfer (`hnsw_search_packed`, a TPU
+workaround: this returns tensors).
 """
 
 from __future__ import annotations
@@ -49,6 +56,10 @@ __all__ = [
     "prune_scored",
     "knn_build_step",
     "merge_prune_step",
+    "merge_prune_batch_out",
+    "merge_prune_chunk_out",
+    "nn_descent_round",
+    "bucket_knn_all",
     "assign_top2_blocked",
 ]
 
@@ -59,8 +70,16 @@ _BITS = [1 << i for i in range(31)] + [-(1 << 31)]
 
 
 def _exact_dots(subscripts, a, b):
-    """Float32 products (TF32 is off, `ops/runtime.py`). int8 x int8 codes
-    are exact here too: |dot| <= D * 127^2 < 2^24 up to D = 1024."""
+    """Dot products at full operand precision: both sides go to float32 and
+    multiply there (TF32 is off, `ops/runtime.py`).
+
+    bf16 x bf16: every product is exact in float32 and the sum accumulates
+    in float32, which is what the JAX module's one native pass computes.
+    int8 x int8: exact, |dot| <= D * 127^2 < 2^24 up to D = 1024.
+    f32 x bf16 (or bf16 x f32): the JAX module splits the f32 side into bf16
+    hi + lo halves, two passes that drop the f32 side's low 8 mantissa bits;
+    that split is left out on purpose. The product here is the full float32
+    one, so mixed scores differ from the JAX module's below 1e-5 relative."""
     return torch.einsum(subscripts, a.float(), b.float())
 
 
@@ -117,6 +136,48 @@ def _shift_dup(x):
     return dup
 
 
+def _grouped_merge(grp_s, grp_i, grp_g, add_s, add_i, add_g, group_topk: int):
+    """Merge scored rows into a per-group-capped result buffer: at most
+    `group_topk` best rows per group code, then the best R rows overall
+    (R = the buffer's width); the batched form of the reference's per-group
+    heaps (`hnsw_context.h:25-230`). One stable two-key sort (group, then
+    similarity descending) lays each group out best first; the rank within a
+    group is a cumulative count less the count at the group's start, so there
+    is no loop over groups."""
+    r = grp_s.shape[1]
+    s = torch.cat([grp_s, add_s], dim=1)
+    i = torch.cat([grp_i, add_i], dim=1)
+    g = torch.cat([grp_g, add_g], dim=1)
+    invalid = (i < 0) | (g < 0)
+    gkey = torch.where(invalid, _SORT_SENTINEL, g)
+    neg_s = torch.where(invalid, float("inf"), -s)  # invalid rows sink last
+    # lexicographic (gkey, neg_s): stable sort on the minor key, then on the major
+    o_minor = torch.sort(neg_s, dim=1, stable=True).indices
+    gk_srt, o_major = torch.sort(gkey.gather(1, o_minor), dim=1, stable=True)
+    order = o_minor.gather(1, o_major)
+    s_srt = s.gather(1, order)
+    id_srt = i.gather(1, order)
+    boundary = torch.ones_like(invalid)
+    boundary[:, 1:] = gk_srt[:, 1:] != gk_srt[:, :-1]
+    # the byte-map beam may score a within-step duplicate twice; equal
+    # (group, sim, id) rows sort next to each other: null the repeats so a
+    # group cannot fill its quota with copies
+    counted = (gk_srt < _SORT_SENTINEL) & ~(_shift_dup(id_srt) & (id_srt >= 0))
+    cnt = counted.long()
+    before = torch.cumsum(cnt, dim=1) - cnt  # counted rows left of each lane
+    # the count at each group's start, carried along the group by a running
+    # max (the counts never decrease, so a later group's start dominates)
+    base = torch.cummax(torch.where(boundary, before, 0), dim=1).values
+    keep = counted & (before - base < group_topk)
+    new_s, sel = topk_desc(torch.where(keep, s_srt, NEG_INF), r)
+    ok = new_s > NEG_INF / 2
+    return (
+        new_s,
+        torch.where(ok, id_srt.gather(1, sel), -1),
+        torch.where(ok, gk_srt.gather(1, sel), -1),
+    )
+
+
 def hnsw_search(
     q: torch.Tensor,  # (Q, D) f32
     codes: torch.Tensor,  # (N_pad, D)
@@ -141,9 +202,20 @@ def hnsw_search(
     visited_bytes: bool = False,
     approx_merge: bool = False,  # accepted; the merges always run exact
     done_frac: float = 1.0,
+    group_codes: Optional[torch.Tensor] = None,  # (N_pad,) int group codes, -1 = none
+    group_cap: int = 0,  # width R of the per-group result buffer (0 = off)
+    group_topk: int = 0,  # rows kept per group
 ):
-    """Batched HNSW search (`_beam_core` + `hnsw_search` of the JAX module).
+    """Batched HNSW search (`_beam_core` with `hnsw_search` and
+    `hnsw_search_grouped` of the JAX module).
     Returns (sims (Q, topk) desc, ids (Q, topk) int64, -1 pad).
+
+    group_cap > 0 with `group_codes` also harvests, while the beam runs, a
+    (Q, R) buffer of the best `group_topk` rows per group code over every row
+    the beam scored (reference in-traversal grouping,
+    `hnsw_algorithm.cc:102-104`), and returns (sims, ids, grp_sims, grp_ids,
+    grp_codes). The buffer is harvest only: it never steers the traversal or
+    its termination, so the cost does not grow with the number of groups.
 
     visited_bytes=True keeps the (hashed) visited set as a byte map: a set
     is duplicate-safe, so the per-step dedup sort is elided and a
@@ -202,6 +274,17 @@ def hnsw_search(
     cand_s[:, 0] = entry_sim
     cand_i[:, 0] = entry_ids
     cand_x = torch.zeros((nq, ef), dtype=torch.bool, device=dev)  # expanded flags
+
+    grouped = group_cap > 0 and group_codes is not None
+    if grouped:
+        group_codes = group_codes.long()
+        g_ok = mask[entry_ids] if mask is not None else torch.ones(nq, dtype=torch.bool, device=dev)
+        grp_s = torch.full((nq, group_cap), NEG_INF, dtype=torch.float32, device=dev)
+        grp_i = torch.full((nq, group_cap), -1, dtype=torch.long, device=dev)
+        grp_g = torch.full((nq, group_cap), -1, dtype=torch.long, device=dev)
+        grp_s[:, 0] = torch.where(g_ok, entry_sim, NEG_INF)
+        grp_i[:, 0] = torch.where(g_ok, entry_ids, -1)
+        grp_g[:, 0] = torch.where(g_ok, group_codes[entry_ids], -1)
 
     use_bytes = visited_bytes and visited_bits > 0
     qrows = torch.arange(nq, device=dev)
@@ -300,6 +383,21 @@ def hnsw_search(
                 nr_i = torch.where(rdup, -1, nr_i)
             res_s = torch.where(act, nr_s, res_s)
             res_i = torch.where(act, nr_i, res_i)
+
+        # 9. per-group harvest: every scored row that passes the filter
+        #    competes for its group's quota
+        if grouped:
+            g_ok = (mask[nbrs_safe] & fresh) if mask is not None else fresh
+            ng_s, ng_i, ng_g = _grouped_merge(
+                grp_s, grp_i, grp_g,
+                torch.where(g_ok, sims, NEG_INF),
+                torch.where(g_ok, nbrs_safe, -1),
+                torch.where(g_ok, group_codes[nbrs_safe], -1),
+                group_topk,
+            )
+            grp_s = torch.where(act, ng_s, grp_s)
+            grp_i = torch.where(act, ng_i, grp_i)
+            grp_g = torch.where(act, ng_g, grp_g)
         step += 1
 
     hnsw_search.last_steps = step
@@ -307,6 +405,8 @@ def hnsw_search(
         res_s, res_i = cand_s, cand_i
     res_s, res_i = res_s[:, :topk], res_i[:, :topk]
     res_i = torch.where(res_s > NEG_INF / 2, res_i, -1)
+    if grouped:
+        return res_s, res_i, grp_s, grp_i, grp_g
     return res_s, res_i
 
 
@@ -524,41 +624,147 @@ def knn_build_step(
     return adj
 
 
-def merge_prune_step(
-    rows,  # (B,)
-    cand_ids,  # (B, C) forward + reverse candidates, unsorted
+def _merge_prune_ids(
+    rows,  # (B,) base node rows
+    cand_ids,  # (B, C) candidate rows, any order, -1 pad
     codes,
     norms2,
-    adj,  # (N, max_out) int32, updated in place
     *,
     metric: MetricType,
     max_out: int,
     alpha: float = 1.0,
     backfill_alpha: float = 0.0,
+    window: int = 0,
 ):
-    """Final per-node prune over forward + reverse candidates: score against
-    the base, sort desc, heuristic-prune, scatter into `adj`."""
+    """The prune every merge phase shares: score the candidates against the
+    base, sort desc (stable), drop self / pad / repeated ids, heuristic-prune,
+    compact with backfill -> (B, max_out) int64 ids, -1 pad. `window` > 0 lets
+    only the best `window` scored candidates reach the prune, which bounds the
+    (B, C, C) pair buffer. Gathered codes keep their dtype (`_exact_dots`
+    multiplies them in float32)."""
+    rows = rows.long()
     cand_ids = cand_ids.long()
     valid = (cand_ids >= 0) & (cand_ids != rows[:, None])
     safe = cand_ids.clamp_min(0)
-    vecs = codes[safe].float()
+    vecs = codes[safe]
     nrm2 = norms2[safe]
     sims = _sim_to_base(codes[rows], norms2[rows], vecs, nrm2, metric)
     sims = torch.where(valid, sims, NEG_INF)
     order = torch.sort(-sims, dim=1, stable=True).indices
+    if 0 < window < order.shape[1]:
+        order = order[:, :window]
     ids_o = cand_ids.gather(1, order)
     sims_o = sims.gather(1, order)
-    # forward + reverse can repeat an id (mutual edges): keep the first only
+    # forward + reverse (or two neighbours' lists) can repeat an id: keep the first
     valid_o = valid.gather(1, order) & ~_dup_mask(ids_o)
-    pair = _pairwise_sims(vecs.gather(1, order[:, :, None].expand_as(vecs)), nrm2.gather(1, order), metric)
+    vecs_o = vecs.gather(1, order[:, :, None].expand(-1, -1, vecs.shape[2]))
+    pair = _pairwise_sims(vecs_o, nrm2.gather(1, order), metric)
     sims_o = torch.where(valid_o, sims_o, NEG_INF)
     keep = _prune_keep(pair, sims_o, valid_o, max_out, metric=metric, alpha=alpha)
     ids_c, _ = _compact_keep_backfill(
         keep, valid_o, ids_o, sims_o, max_out,
         pair=pair, metric=metric, backfill_alpha=backfill_alpha,
     )
-    adj[rows] = _pad_cols(ids_c, max_out).to(adj.dtype)
+    return _pad_cols(ids_c, max_out)
+
+
+def merge_prune_step(
+    rows,  # (B,)
+    cand_ids,  # (B, C) forward + reverse candidates, unsorted
+    codes,
+    norms2,
+    adj,  # (N, max_out) int32, updated in place
+    **kw,  # metric, max_out, alpha, backfill_alpha
+):
+    """Final per-node prune over forward + reverse candidates, scattered
+    into `adj`."""
+    adj[rows] = _merge_prune_ids(rows, cand_ids, codes, norms2, **kw).to(adj.dtype)
     return adj
+
+
+def merge_prune_chunk_out(rows_mat, cand_mat, codes, norms2, **kw):
+    """`merge_prune_step` over (NB, B) rows with their (NB, B, C) candidates
+    passed in, emitting the pruned ids (NB, B, max_out) int32 instead of
+    scattering them. One prune per batch, no host sync in between."""
+    return torch.stack([
+        _merge_prune_ids(rows, cand, codes, norms2, **kw).int()
+        for rows, cand in zip(rows_mat, cand_mat)
+    ])
+
+
+def merge_prune_batch_out(rows_mat, cand_full, codes, norms2, **kw):
+    """Forward prune straight from the device-resident candidate table
+    `cand_full` (n + 1, C): each batch of `rows_mat` (NB, B) gathers its rows'
+    candidate lanes and emits pruned ids -> (NB, B, max_out) int32."""
+    return torch.stack([
+        _merge_prune_ids(rows, cand_full[rows.long()], codes, norms2, **kw).int()
+        for rows in rows_mat
+    ])
+
+
+def nn_descent_round(rows_mat, fwd_full, codes, norms2, *, max_out: int, expand: int, **kw):
+    """One NN-descent round (Dong et al., WWW'11) over (NB, B) rows: a node's
+    candidates are its own neighbours and the neighbours of `expand` of them,
+    scored exactly against the node and pruned again. It heals the boundary
+    errors of cluster-local candidates (a true neighbour in the next k-means
+    cell is two hops away in the first graph).
+
+    `fwd_full` is the (n + 1, m0) adjacency, sim-desc per row, whose last row
+    is all -1 (pads expand to it). The expanded neighbours are taken at
+    stride m0 // expand across the ranked list: the best ones mostly share
+    the node's cell and offer again what it has. Only the best 2 * max_out
+    scored candidates reach the prune. Returns (NB, B, max_out) int32."""
+    dump = fwd_full.shape[0] - 1
+    stride = max(1, fwd_full.shape[1] // expand)
+    out = []
+    for rows in rows_mat:
+        nbrs = fwd_full[rows.long()].long()  # (B, m0)
+        picked = torch.where(nbrs >= 0, nbrs, dump)[:, ::stride][:, :expand]
+        cand = torch.cat([nbrs, fwd_full[picked].long().reshape(nbrs.shape[0], -1)], dim=1)
+        out.append(
+            _merge_prune_ids(
+                rows, cand, codes, norms2, max_out=max_out, window=2 * max_out, **kw
+            ).int()
+        )
+    return torch.stack(out)
+
+
+def bucket_knn_all(
+    bucket_rows,  # (NB, Mp) member rows per bucket, -1 pad
+    bucket_slot,  # (NB, Mp) 0 = primary member, 1 = spill member
+    cand,  # (n + 1, 2*kc) int32, updated in place; row n takes the pads' writes
+    codes,
+    norms2,
+    *,
+    metric: MetricType,
+    kc: int,
+):
+    """Per-bucket exact kNN: each bucket scores its members against each
+    other, one (Mp, Mp) block, and every member's top-kc in-bucket neighbours
+    go into its slot's half of its row of the candidate table (slot s holds
+    lanes [s*kc, (s+1)*kc), unsorted by contract). The JAX module takes
+    `approx_max_k` here; this takes the exact top-kc on every device.
+
+    Whole rows are read, spliced and written back: a row is in a bucket at
+    most once (its two nearest centroids differ), so only the dump row can
+    repeat among one bucket's destinations, and nothing reads it."""
+    n_dump = cand.shape[0] - 1
+    for rows_b, slot_b in zip(bucket_rows.long(), bucket_slot):
+        valid = rows_b >= 0
+        safe = rows_b.clamp_min(0)
+        sims = _pairwise_sims(codes[safe][None], norms2[safe][None], metric)[0]
+        sims = torch.where(valid[None, :], sims, NEG_INF)
+        sims.fill_diagonal_(NEG_INF)
+        s, idx = topk_desc(sims, kc)
+        ids = torch.where(s > NEG_INF / 2, rows_b[idx], -1).to(cand.dtype)
+        dest = torch.where(valid, safe, n_dump)
+        cur = cand[dest]
+        cand[dest] = torch.where(
+            slot_b[:, None] == 0,
+            torch.cat([ids, cur[:, kc:]], dim=1),
+            torch.cat([cur[:, :kc], ids], dim=1),
+        )
+    return cand
 
 
 def _assign_top2_scan(x: torch.Tensor, cents: torch.Tensor, cnorm2: torch.Tensor) -> torch.Tensor:
@@ -576,7 +782,9 @@ def _assign_top2_scan(x: torch.Tensor, cents: torch.Tensor, cnorm2: torch.Tensor
 def assign_top2_blocked(data: torch.Tensor, cents: torch.Tensor, block: int = 16384) -> torch.Tensor:
     """Two nearest centroids per row, blocked over N so the (N, K) distance
     matrix never materializes; a non-divisible N runs its remainder as one
-    smaller block. Returns (N, 2) int32 on the device of `data`."""
+    smaller block. Rows may be fp32, bf16 or int8 codes (each exact in
+    float32, where they are multiplied); the centroids stay fp32.
+    Returns (N, 2) int32 on the device of `data`."""
     cents = cents.to(device=data.device, dtype=torch.float32)
     cnorm2 = (cents * cents).sum(-1)
     return torch.cat(
