@@ -1,6 +1,6 @@
 """Smoke run of zvec_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered]
+    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,sparse,fusion]
 
 With no arguments every phase runs and the two JSON lines are printed; a
 subset of phases (for work on one path) prints no JSON line.
@@ -62,6 +62,29 @@ Phases (any failure raises, and the exit code is non-zero):
      queries), bucket_knn_all on the card against the CPU for 8
      buckets of the build, profiles of one forward-prune and one NN-descent
      batch, and a reopen that loads the graph without k-means or prune
+  9. the sparse HNSW path through the public API, on the deployment of
+     benchmarks/bench_sparse1m.py with its rows cut from 1,000,000 to 250,000:
+     one SPARSE_VECTOR_FP32 field, HnswIndexParam(IP, m=16,
+     ef_construction=200), vocabulary 131,072, 256 topics (a 2,000-term shared
+     head, 600-term tails), 96 terms a document, 16 a query -> insert (batches
+     of 1024) -> optimize (above 200,000 rows the size rule picks the clustered
+     signature build: signatures, k-means, top-2 assign, bucket kNN, exact
+     rescoring, one expansion round, reverse merge, medoid entries) -> flush ->
+     batch_query of 1024 queries at ef 32 / 64 / 128 / 256 (recall@10 over 256
+     queries against a torch.sparse product on the card, read apart for the
+     queries whose topic holds one of the beam's 128 medoid entries: >= 0.80
+     there at ef=128, >= 0.65 over all queries),
+     the is_linear flat scan (recall >= 0.999), single-query latency, profiles
+     of one beam batch and one flat batch, the beam and sparse_ip_topk (a
+     65,536-row slice) on the card against the CPU on 16 queries, and a reopen
+     that loads the graph and the medoid entries without k-means
+ 10. dense + sparse fusion through the public API, benchmarks/bench_suite.py's
+     config #5 as it stands: 100,000 documents, a 64-d VECTOR_FP32 field
+     (FlatIndexParam(COSINE)) and a sparse field (FlatIndexParam(IP), vocabulary
+     30,000, 24 terms), RrfReRanker, 64 queries, top-10: per-query fused
+     latency, batch_fused_query, the two batch_query calls the fused pair
+     replaces; every fused answer equals the port's reranker over the two
+     per-field answers, the fused pair was taken, and K1 was not launched
 
 Phases 3 and 3b print, beside each stage-one time, its bound (the larger of
 the split-TF32 tensor-core work over 495 TFLOP/s and the bytes over 3.35
@@ -141,7 +164,25 @@ GRP_CAP = min(1 << max(6, (2 * GRP_COUNT * GRP_TOPK - 1).bit_length()), 1024)
 GRP_GAUSSIAN = dict(ef=500, min_pairs=0.7, min_leaders=0.85)
 GRP_CLUSTERED = dict(ef=256, min_pairs=0.9, min_leaders=0.95)
 GRP_BEAM_Q, GRP_BEAM_CAP = 16, 64
-PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered")
+# phase 9: bench_sparse1m.py's deployment, rows cut from 1,000,000
+SP_N, SP_VOCAB, SP_TOPICS, SP_HEAD, SP_TAIL = 250_000, 131_072, 256, 2000, 600
+SP_NNZ_DOC, SP_NNZ_Q, SP_SEED, SP_CHUNK = 96, 16, 0x5A5A, 1 << 17
+SP_EFS = (32, 64, 128, 256)  # the deployment's three, and one more to show where recall goes
+SP_GT_Q = 256  # queries with an exact answer
+# recall@10 floors at ef = 128 (tripwires: the JAX package has no number at this
+# scale). 0.80 holds for the queries whose topic holds one of the beam's entries;
+# the engine keeps at most 128 medoid entries (the JAX engine's cap) for 200
+# clusters over 256 topics, and a query of a topic without an entry reaches it
+# only through teleport edges, so over all queries the card read 0.7469 here
+# and 0.6426 at 500,000 rows, and the floor over all queries is 0.65
+SP_MIN_RECALL_EF128 = 0.80
+SP_MIN_RECALL_EF128_ALL = 0.65
+SP_MIN_RECALL_FLAT = 0.999
+SP_CHECK_Q, SP_CHECK_EF, SP_CHECK_ROWS = 16, 64, 65_536
+SP_RTOL = 1e-5  # card vs CPU: scores, and the width of a near-tie
+# phase 10: bench_suite.py's config #5 (its SEED = 7)
+FU_N, FU_D, FU_VOCAB, FU_NNZ, FU_Q, FU_SEED = 100_000, 64, 30_000, 24, 64, 7 + 2
+PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "sparse", "fusion")
 
 
 def log(msg: str) -> None:
@@ -1122,6 +1163,395 @@ def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
     return launches
 
 
+def sparse_topic_model():
+    """`benchmarks/bench_sparse1m.py::_topic_model`, copied draw for draw:
+    per-topic term pools, a head shared corpus-wide plus a tail per topic."""
+    rng = np.random.default_rng(SP_SEED)
+    head = np.arange(SP_HEAD)
+    pools = []
+    for _ in range(SP_TOPICS):
+        tail = rng.choice(SP_VOCAB - SP_HEAD, SP_TAIL, replace=False) + SP_HEAD
+        pools.append(np.concatenate([head, tail]))
+    return pools
+
+
+def sparse_make_rows(pools, count: int, nnz: int, seed: int, head_frac=0.3):
+    """`benchmarks/bench_sparse1m.py::_make_rows`, copied draw for draw: `count`
+    sparse rows as (idx (count, nnz) int32, val (count, nnz) f32), each sorted
+    by term, a repeated term voided (idx -1, val 0). Head terms get low
+    (idf-like) weights, tail terms high ones."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, SP_TOPICS, count)
+    n_head = int(nnz * head_frac)
+    n_tail = nnz - n_head
+    head_idx = rng.integers(0, SP_HEAD, (count, n_head)).astype(np.int32)
+    tail_pick = rng.integers(0, SP_TAIL, (count, n_tail))
+    pool_mat = np.stack([p[SP_HEAD:] for p in pools])
+    tail_idx = pool_mat[t[:, None], tail_pick].astype(np.int32)
+    idx = np.concatenate([head_idx, tail_idx], axis=1)
+    val = np.concatenate(
+        [
+            (rng.random((count, n_head)) * 0.3 + 0.05).astype(np.float32),
+            (rng.random((count, n_tail)) + 0.5).astype(np.float32),
+        ],
+        axis=1,
+    )
+    order = np.argsort(idx, axis=1, kind="stable")
+    si = np.take_along_axis(idx, order, 1)
+    sv = np.take_along_axis(val, order, 1)
+    dup = np.zeros_like(si, dtype=bool)
+    dup[:, 1:] = si[:, 1:] == si[:, :-1]
+    return np.where(dup, -1, si), np.where(dup, 0.0, sv)
+
+
+def sparse_rows_to_dicts(idx: np.ndarray, val: np.ndarray):
+    """`benchmarks/bench_sparse1m.py::rows_to_dicts`."""
+    out = []
+    for i in range(idx.shape[0]):
+        m = idx[i] >= 0
+        out.append(dict(zip(idx[i][m].tolist(), val[i][m].astype(float).tolist())))
+    return out
+
+
+def _sparse_oracle(chunks, q_idx: np.ndarray, q_val: np.ndarray, dev: torch.device, k: int):
+    """Exact sparse IP top-k on the card, by a torch.sparse product per chunk
+    of rows (no code of ops/sparse.py): (scores desc, row ids), each (Q, k)."""
+    nq = q_idx.shape[0]
+    qd = torch.zeros((SP_VOCAB, nq), device=dev)
+    qm = q_idx >= 0
+    qd[torch.from_numpy(q_idx[qm]).long().to(dev),
+       torch.from_numpy(np.nonzero(qm)[0]).to(dev)] = torch.from_numpy(q_val[qm]).to(dev)
+    best_s = torch.full((nq, k), -torch.inf, device=dev)
+    best_i = torch.full((nq, k), -1, dtype=torch.long, device=dev)
+    lo = 0
+    for idx, val in chunks:
+        m = idx >= 0
+        rows = np.repeat(np.arange(idx.shape[0]), m.sum(1))
+        coo = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([rows, idx[m].astype(np.int64)])).to(dev),
+            torch.from_numpy(val[m]).to(dev), size=(idx.shape[0], SP_VOCAB),
+        )
+        sims = torch.sparse.mm(coo, qd).T  # (Q, rows of the chunk)
+        ids = torch.arange(lo, lo + idx.shape[0], device=dev).expand(nq, -1)
+        best_s, sel = torch.topk(torch.cat([best_s, sims], dim=1), k, dim=1)
+        best_i = torch.cat([best_i, ids], dim=1).gather(1, sel)
+        lo += idx.shape[0]
+    return best_s.cpu().numpy(), best_i.cpu().numpy()
+
+
+def _sparse_topics(pools, idx: np.ndarray) -> np.ndarray:
+    """The topic of each generated row: the one whose tail pool holds most of
+    the row's tail terms."""
+    member = np.zeros((SP_TOPICS, SP_VOCAB), dtype=bool)
+    for t, pool in enumerate(pools):
+        member[t, pool[SP_HEAD:]] = True
+    tail = idx >= SP_HEAD
+    hits = (member[:, np.where(tail, idx, 0)] & tail[None]).sum(-1)  # (topics, rows)
+    return hits.argmax(0)
+
+
+def _sparse_card_vs_cpu(engine, q_idx: np.ndarray, q_val: np.ndarray) -> None:
+    """The sparse beam and `sparse_ip_topk` (on a slice of the rows) on the
+    engine's CUDA tensors against the same calls on CPU copies: ids equal,
+    scores within SP_RTOL, except rows whose differing ids all score within
+    SP_RTOL of the row's k-th score."""
+    from zvec_tpu_torch.ops.hnsw_sparse import hnsw_sparse_search
+    from zvec_tpu_torch.ops.sparse import sparse_ip_topk
+
+    tensors = (engine._doc_idx, engine._doc_val, engine._l0, engine._entries)
+    budget = min(max(10_000, int(0.1 * engine._n)), engine._n)
+
+    def beam(dev):
+        return hnsw_sparse_search(
+            torch.from_numpy(q_idx).to(dev), torch.from_numpy(q_val).to(dev),
+            *(x.to(dev) for x in tensors), None, budget, ef=SP_CHECK_EF, topk=K,
+            max_steps=SP_CHECK_EF + 64, vocab=engine._vocab, frontier=4,
+        )
+
+    def scan(dev):
+        return sparse_ip_topk(
+            torch.from_numpy(q_idx).to(dev), torch.from_numpy(q_val).to(dev),
+            engine._doc_idx[:SP_CHECK_ROWS].to(dev), engine._doc_val[:SP_CHECK_ROWS].to(dev),
+            None, topk=K, vocab=engine._vocab,
+        )
+
+    for name, fn in (("beam", beam), (f"sparse_ip_topk ({SP_CHECK_ROWS} rows)", scan)):
+        cs, ci = (x[:SP_CHECK_Q].cpu() for x in fn(torch.device("cuda")))  # drop the batch padding
+        t0 = time.perf_counter()
+        ps, pi = (x[:SP_CHECK_Q] for x in fn(torch.device("cpu")))
+        cpu_s = time.perf_counter() - t0
+        bad, differ, err = _check_final_at_k(cs, ci, ps, pi, rtol=SP_RTOL)
+        scale = max(float(ps.abs().max()), 1.0)
+        log(f"sparse: CUDA {name} vs CPU on {len(cs)} queries: {differ} rows differ "
+            f"({bad} outside near-ties), max |dscore| {err:.3g} on equal rows; CPU {cpu_s:.2f} s")
+        if bad or err > SP_RTOL * scale:
+            raise AssertionError(f"sparse: the CUDA {name} disagrees with the CPU's")
+
+
+def phase_sparse(workdir: Path, dev: torch.device) -> int:
+    """The sparse HNSW path at 500,000 documents: the clustered signature
+    build picked by the size rule, the beam at three ef, the flat scan, reopen."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.core.hnsw_sparse import SparseHnswEngine
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.ops.hnsw_sparse import hnsw_sparse_search
+    from zvec_tpu_torch.ops.kmeans import lloyd
+
+    pools = sparse_topic_model()
+    schema = zt.CollectionSchema(
+        "sparse1m",
+        vectors=[zt.VectorSchema("sv", zt.DataType.SPARSE_VECTOR_FP32, 0,
+                                 zt.HnswIndexParam(zt.MetricType.IP, m=16, ef_construction=200))],
+    )
+    path = workdir / "sparse"
+    flat_scan_topk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    col = zt.create_and_open(str(path), schema)
+    chunks, t_make, t_insert = [], 0.0, 0.0
+    for glo in range(0, SP_N, SP_CHUNK):
+        cnt = min(SP_CHUNK, SP_N - glo)
+        t0 = time.perf_counter()
+        idx, val = sparse_make_rows(pools, cnt, SP_NNZ_DOC, SP_SEED + 1 + glo)
+        dicts = sparse_rows_to_dicts(idx, val)
+        chunks.append((idx, val))
+        t1 = time.perf_counter()
+        for lo in range(0, cnt, 1024):
+            col.insert([zt.Doc(id=str(glo + lo + i), vectors={"sv": dicts[lo + i]})
+                        for i in range(min(1024, cnt - lo))])
+        t_make += t1 - t0
+        t_insert += time.perf_counter() - t1
+    del dicts
+    t0 = time.perf_counter()
+    col.optimize()
+    t_build = time.perf_counter() - t0
+    col.flush()
+    launches = flat_scan_topk.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seg = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0)
+    engine = seg.engine_for("sv")
+    bt, info = engine.build_times, engine.build_info
+    log(f"sparse: {SP_N} docs x {SP_NNZ_DOC} terms, vocab {SP_VOCAB}: rows made in {t_make:.2f} s, "
+        f"insert {t_insert:.2f} s, optimize {t_build:.2f} s, of which the engine build (data fetch + "
+        f"graph + upload) {engine.stats.last_build_secs:.2f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in bt.items() if k != "dump_aux")
+        + f"; graph file write {bt.get('dump_aux', 0.0):.2f} s; peak device memory {peak_gb:.3f} GB")
+    log(f"sparse: K {info.get('K')} buckets of mp {info.get('mp')} rows, kc {info.get('kc')}, members "
+        f"dropped past mp {info.get('dropped')} of {2 * SP_N}; {len(engine._entries)} medoid entries; "
+        f"rows on the card {tuple(engine._doc_idx.shape)}, vocab {engine._vocab}; K1 launches {launches}")
+    if type(engine) is not SparseHnswEngine or engine._l0 is None:
+        raise AssertionError("sparse: the field did not build the sparse graph engine")
+    if not info.get("clustered") or "kmeans" not in bt:
+        raise AssertionError("sparse: the size rule did not take the clustered signature build")
+    if not (engine._doc_idx.is_cuda and engine._l0.is_cuda and engine._entries.is_cuda):
+        raise AssertionError("sparse: the rows, the graph or the entries are not on CUDA")
+    if launches != 0:
+        raise AssertionError("sparse: the sparse path launched the flat-scan kernel")
+
+    q_idx, q_val = sparse_make_rows(pools, Q, SP_NNZ_Q, SP_SEED + 77, head_frac=0.25)
+    qdicts = sparse_rows_to_dicts(q_idx, q_val)
+    # the beam starts from at most 128 medoids (the JAX engine's cap) while the
+    # build made K clusters over 256 topics: a query whose topic holds no entry
+    # reaches it only through teleport edges, so recall is read for both kinds
+    entry_rows = engine._entries.cpu().numpy()
+    entry_idx = np.stack([chunks[e // SP_CHUNK][0][e % SP_CHUNK] for e in entry_rows])
+    covered = np.isin(_sparse_topics(pools, q_idx[:SP_GT_Q]), _sparse_topics(pools, entry_idx))
+    log(f"sparse: {len(entry_rows)} entries lie in {len(set(_sparse_topics(pools, entry_idx).tolist()))} "
+        f"of {SP_TOPICS} topics; {int(covered.sum())} of the {SP_GT_Q} oracle queries are of such a topic")
+    t0 = time.perf_counter()
+    gs, gi = _sparse_oracle(chunks, q_idx[:SP_GT_Q], q_val[:SP_GT_Q], dev, K + 1)
+    log(f"sparse: exact oracle (torch.sparse product on the card, {SP_GT_Q} queries) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del chunks
+    exp = gi[:, :K]
+    ids_by_ef = {}
+    recalls, covered_recalls = {}, {}
+    for ef in SP_EFS:
+        param = zt.HnswQueryParam(ef=ef)
+        first = col.batch_query("sv", qdicts, topk=K, output_fields=[], param=param)
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            out = col.batch_query("sv", qdicts, topk=K, output_fields=[], param=param)
+            times.append(time.perf_counter() - t1)
+        got = _ids(first)
+        scores = np.array([[d.score for d in docs] for docs in first], np.float32)
+        if got.shape != (Q, K) or not np.isfinite(scores).all() or len(out) != Q:
+            raise AssertionError("sparse: results are not (1024, 10) finite scores")
+        recalls[ef], ids_by_ef[ef] = _recall(got[:SP_GT_Q], exp), got
+        rec_in = _recall(got[:SP_GT_Q][covered], exp[covered])
+        rec_out = _recall(got[:SP_GT_Q][~covered], exp[~covered])
+        covered_recalls[ef] = rec_in
+        med = statistics.median(times)
+        log(f"sparse: ef={ef}: {med * 1e3:.2f} ms per 1024-query batch (median of 5, "
+            f"{min(times) * 1e3:.2f} to {max(times) * 1e3:.2f}), {Q / med:.1f} qps; "
+            f"{hnsw_sparse_search.last_steps} beam steps in the last batch; recall@{K} "
+            f"{recalls[ef]:.4f} on {SP_GT_Q} queries ({rec_in:.4f} where the topic holds an entry, "
+            f"{rec_out:.4f} where it does not)")
+    if covered_recalls[128] < SP_MIN_RECALL_EF128 or recalls[128] < SP_MIN_RECALL_EF128_ALL:
+        raise AssertionError(
+            f"sparse: recall@10 at ef=128 is {covered_recalls[128]:.4f} where the topic holds an entry "
+            f"(floor {SP_MIN_RECALL_EF128}), {recalls[128]:.4f} over all queries (floor {SP_MIN_RECALL_EF128_ALL})")
+
+    lin = zt.HnswQueryParam(ef=64, is_linear=True)
+    flat_first = col.batch_query("sv", qdicts[:SP_GT_Q], topk=K, output_fields=[], param=lin)
+    t1 = time.perf_counter()
+    col.batch_query("sv", qdicts[:SP_GT_Q], topk=K, output_fields=[], param=lin)
+    flat_s = time.perf_counter() - t1
+    fgot = _ids(flat_first)
+    fscores = np.array([[d.score for d in docs] for docs in flat_first], np.float32)
+    near_tie = np.abs(gs[:, K - 1] - gs[:, K]) <= TIE_RTOL * np.abs(gs[:, K - 1])
+    short = np.array([len(set(fgot[r]) & set(exp[r])) < K for r in range(SP_GT_Q)])
+    frecall = _recall(fgot, exp)
+    log(f"sparse: flat scan (is_linear): {flat_s * 1e3:.2f} ms per {SP_GT_Q}-query batch, "
+        f"{SP_GT_Q / flat_s:.1f} qps; recall@{K} {frecall:.6f} ({int(short.sum())} rows short, "
+        f"{int((short & ~near_tie).sum())} outside near-ties); max |score - oracle| "
+        f"{float(np.abs(fscores - gs[:, :K]).max()):.3g}")
+    if frecall < SP_MIN_RECALL_FLAT or (short & ~near_tie).any():
+        raise AssertionError("sparse: the flat scan misses the exact answer")
+
+    param = zt.HnswQueryParam(ef=64)
+    col.query(zt.VectorQuery("sv", vector=qdicts[0], param=param), topk=K)
+    lat = []
+    for i in range(24):
+        t1 = time.perf_counter()
+        col.query(zt.VectorQuery("sv", vector=qdicts[i], param=param), topk=K)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    log(f"sparse: single query at ef=64: p50 {np.percentile(lat, 50):.2f} ms, p99 "
+        f"{np.percentile(lat, 99):.2f} ms over 24 calls")
+    _profiled(f"sparse beam batch ef=64 ({Q} queries)", lambda: engine.search(qdicts, K, None, param))
+    _profiled(f"sparse flat batch ({SP_GT_Q} queries)",
+              lambda: engine.search(qdicts[:SP_GT_Q], K, None, lin))
+    cq_idx, cq_val = engine._queries_from_rows(qdicts[:SP_CHECK_Q])
+    _sparse_card_vs_cpu(engine, cq_idx, cq_val)
+    entries = engine._entries.cpu().numpy()
+    col._impl.close()
+    del col, seg, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = lloyd.calls
+    t0 = time.perf_counter()
+    reopened = zt.open(str(path))
+    again = _ids(reopened.batch_query("sv", qdicts, topk=K, output_fields=[],
+                                      param=zt.HnswQueryParam(ef=128)))
+    t_reopen = time.perf_counter() - t0
+    eng2 = next(s for s in reopened._impl._segments_snapshot() if s.doc_count > 0).engine_for("sv")
+    loaded = eng2._loaded_aux is not None and "kmeans" not in eng2.build_times
+    same_entries = np.array_equal(eng2._entries.cpu().numpy(), entries)
+    reopened._impl.close()
+    if lloyd.calls != calls or not loaded or not same_entries:
+        raise AssertionError("sparse: the reopened collection rebuilt its graph or lost its entries")
+    if not (again == ids_by_ef[128]).all():
+        raise AssertionError("sparse: reopened collection returns other ids")
+    log(f"sparse: reopened collection loads the graph and the medoid entries (lloyd calls "
+        f"{lloyd.calls - calls}) and returns identical ids at ef=128; open + first batch "
+        f"{t_reopen:.2f} s")
+    return launches
+
+
+def phase_fusion(workdir: Path) -> int:
+    """Dense + sparse fusion, bench_suite.py's config #5: per-query and
+    batched fused queries against the per-field answers."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+
+    rng = np.random.default_rng(FU_SEED)
+    X = rng.standard_normal((FU_N, FU_D), dtype=np.float32)
+
+    def rand_sparse():
+        dims = rng.choice(FU_VOCAB, FU_NNZ, replace=False)
+        vals = (rng.random(FU_NNZ) + 0.1).astype(np.float32)
+        return {int(a): float(b) for a, b in zip(dims, vals)}
+
+    SV = [rand_sparse() for _ in range(FU_N)]
+    schema = zt.CollectionSchema(
+        "fusion",
+        vectors=[
+            zt.VectorSchema("dense", zt.DataType.VECTOR_FP32, FU_D, zt.FlatIndexParam(zt.MetricType.COSINE)),
+            zt.VectorSchema("sparse", zt.DataType.SPARSE_VECTOR_FP32, 0, zt.FlatIndexParam(zt.MetricType.IP)),
+        ],
+    )
+    t0 = time.perf_counter()
+    col = zt.create_and_open(str(workdir / "fusion"), schema)
+    for lo in range(0, FU_N, 1024):
+        col.insert([zt.Doc(id=str(i), vectors={"dense": X[i], "sparse": SV[i]})
+                    for i in range(lo, min(lo + 1024, FU_N))])
+    t_insert = time.perf_counter() - t0
+    col.optimize()
+    col.flush()
+    t_build = time.perf_counter() - t0 - t_insert
+    qd = rng.standard_normal((FU_Q, FU_D), dtype=np.float32)
+    qs = [rand_sparse() for _ in range(FU_Q)]
+    rr = zt.RrfReRanker()
+    groups = [[zt.VectorQuery("dense", vector=qd[i]), zt.VectorQuery("sparse", vector=qs[i])]
+              for i in range(FU_Q)]
+
+    impl = col._impl
+    taken = []
+    orig = impl.fused_pair_dispatch
+    impl.fused_pair_dispatch = lambda *a, **k: taken.append(orig(*a, **k)) or taken[-1]
+
+    def fused(i):
+        return col.query(groups[i], topk=K, reranker=rr, output_fields=[])
+
+    flat_scan_topk.launches = 0
+    fused(0)  # warm both engines
+    fused(1)
+    lats, answers = [], []
+    for i in range(FU_Q):
+        t1 = time.perf_counter()
+        answers.append(fused(i))
+        lats.append((time.perf_counter() - t1) * 1e3)
+    col.batch_fused_query(groups, topk=K, reranker=rr, output_fields=[])  # warm
+    t1 = time.perf_counter()
+    batched = col.batch_fused_query(groups, topk=K, reranker=rr, output_fields=[])
+    batched_s = time.perf_counter() - t1
+    launches = flat_scan_topk.launches
+    del impl.fused_pair_dispatch
+    if len(taken) != FU_Q + 4 or any(fin is None for fin in taken):
+        raise AssertionError("fusion: a fused query did not take fused_pair_dispatch")
+    if launches != 0:
+        raise AssertionError("fusion: the fused pair launched the flat-scan kernel")
+
+    # the two per-field batches the fused pair replaces (the dense one runs K1)
+    col.batch_query("dense", qd, topk=K + 1, output_fields=[])
+    col.batch_query("sparse", qs, topk=K + 1, output_fields=[])
+    t1 = time.perf_counter()
+    dense_docs = col.batch_query("dense", qd, topk=K + 1, output_fields=[])
+    sparse_docs = col.batch_query("sparse", qs, topk=K + 1, output_fields=[])
+    per_field_s = time.perf_counter() - t1
+    per_field_k1 = flat_scan_topk.launches - launches
+
+    def near_tie(docs):
+        sc = np.array([d.score for d in docs], np.float64)
+        return bool((np.abs(np.diff(sc)) <= SP_RTOL * np.abs(sc[1:])).any())
+
+    excused = 0
+    for i in range(FU_Q):
+        want = rr.rerank({"dense": dense_docs[i][:K], "sparse": sparse_docs[i][:K]})
+        for got in (answers[i], batched[i]):
+            if len(got) != K or not all(np.isfinite(d.score) for d in got):
+                raise AssertionError("fusion: a fused answer is not 10 finite scores")
+            same = [d.id for d in got] == [d.id for d in want] and np.allclose(
+                [d.score for d in got], [d.score for d in want], rtol=1e-6)
+            if not same:
+                # the fused dense half is the blockwise scan, the per-field one K1:
+                # two scores closer than SP_RTOL may swap ranks
+                if not (near_tie(dense_docs[i]) or near_tie(sparse_docs[i])):
+                    raise AssertionError(f"fusion: query {i} differs from the reranked per-field answers")
+                excused += 1
+    log(f"fusion: {FU_N} docs ({FU_D}-d COSINE flat + sparse IP flat, vocab {FU_VOCAB}, {FU_NNZ} terms): "
+        f"insert {t_insert:.2f} s, optimize + flush {t_build:.2f} s; fused query p50 "
+        f"{np.percentile(lats, 50):.2f} ms, p99 {np.percentile(lats, 99):.2f} ms over {FU_Q} calls; "
+        f"batch_fused_query {batched_s * 1e3:.2f} ms for {FU_Q} queries ({FU_Q / batched_s:.1f} qps); the two "
+        f"batch_query calls it replaces {per_field_s * 1e3:.2f} ms ({per_field_k1} K1 launches there); "
+        f"fused answers equal to the reranked per-field answers on {2 * FU_Q - excused} of {2 * FU_Q} "
+        f"({excused} excused by a near-tie); fused_pair_dispatch taken {len(taken)} times; K1 launches "
+        f"on the fused path {launches}")
+    col._impl.close()
+    return launches
+
+
 def main() -> None:
     phases = PHASES
     if len(sys.argv) > 1:
@@ -1159,6 +1589,14 @@ def main() -> None:
             torch.cuda.empty_cache()
         if "clustered" in phases:
             launches["hnsw_clustered_build"] = phase_hnsw_clustered(workdir, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "sparse" in phases:
+            launches["sparse"] = phase_sparse(workdir, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "fusion" in phases:
+            launches["fusion"] = phase_fusion(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(smi)

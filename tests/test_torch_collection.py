@@ -6,8 +6,8 @@ packages; ids must be equal and scores within 1e-4 (rtol and atol: float32
 sums in another order). The collection on disk is the state a database
 carries across, so a collection written by one package must open in the other
 and answer alike. IVF collections train, answer, reopen and open across
-packages the same way. Also: the port imports no JAX, and fields it has no
-engine for (sparse) fail loudly.
+packages the same way. Also: the port imports no JAX, a sparse field opens,
+and what the port still has no engine for (multi-GPU sharding) fails loudly.
 """
 
 import ast
@@ -275,8 +275,15 @@ def test_sparse_field_and_multi_gpu_raise(tmp_path):
         "sparse_col",
         vectors=[p.VectorSchema("sp", p.DataType.SPARSE_VECTOR_FP32, 0, p.FlatIndexParam(p.MetricType.IP))],
     )
-    with pytest.raises(NotImplementedError, match="sparse"):
-        p.create_and_open(str(tmp_path / "s"), schema)
+    # a sparse field is admitted: the collection opens, answers and reopens
+    col = p.create_and_open(str(tmp_path / "s"), schema)
+    col.insert([p.Doc(id=str(i), vectors={"sp": {i: 1.0, i + 1: 0.5}}) for i in range(8)])
+    assert [d.id for d in col.query(p.VectorQuery("sp", vector={3: 1.0}), topk=2)] == ["3", "2"]
+    col.flush()
+    col._impl.close()
+    col = p.open(str(tmp_path / "s"))
+    assert col.query(p.VectorQuery("sp", vector={5: 1.0}), topk=1)[0].id == "5"
+    col._impl.close()
     with pytest.raises(NotImplementedError, match="mesh_devices"):
         p.init(mesh_devices=2)
 
@@ -287,6 +294,10 @@ def test_import_leaves_jax_out():
         "import zvec_tpu_torch.ops.flat_scan; import zvec_tpu_torch.core.hnsw; "
         "import zvec_tpu_torch.ops.hnsw; import zvec_tpu_torch.core.ivf; "
         "import zvec_tpu_torch.ops.kmeans; "
+        "import zvec_tpu_torch.ops.sparse; import zvec_tpu_torch.core.sparse_flat; "
+        "import zvec_tpu_torch.ops.hnsw_sparse; import zvec_tpu_torch.core.hnsw_sparse; "
+        "import zvec_tpu_torch.ops.fused; import zvec_tpu_torch.tool.util; "
+        "import zvec_tpu_torch.extension.multi_vector_reranker; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zvec_tpu' or m.startswith('zvec_tpu.') or m == 'triton']; "
         "assert not bad, bad"

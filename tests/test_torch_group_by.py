@@ -322,6 +322,49 @@ def test_group_leaders_are_exact(pair):
     assert exact >= (10 if kind == "flat" else 8)
 
 
+def test_group_by_shortfall_is_the_algorithms(pair):
+    """Gaussian data, ef below the graph's saturation, 10 groups x 2: both
+    packages give identical answers, so the share of (query, group) pairs
+    that miss the exact grouping (printed for both) is the grouped beam's
+    own, not the port's (the exact indexes stop deepening once ten groups are
+    found, so a group's second member may be missing there too). On 1M gaussian rows the card read 0.75 of the pairs
+    at ef = 500; this is the same case at a size the CPU can check."""
+    kind, cols, x, cats = pair
+    rng = np.random.default_rng(17)
+    queries = (x[rng.choice(len(x), 16, replace=False)] + 0.05 * rng.standard_normal((16, D))).astype(np.float32)
+    shares = {}
+    answers = {}
+    for name, pkg in PKGS.items():
+        param = pkg.HnswQueryParam(ef=24) if kind == "hnsw" else None
+        hit = total = 0
+        answers[name] = []
+        for q in queries:
+            docs = cols[name].group_by_query(
+                pkg.VectorQuery("vec", vector=q, param=param), group_by_field="cat",
+                group_count=10, group_topk=2, output_fields=["cat"],
+            )
+            got = {}
+            for d in docs:
+                got.setdefault(d.fields["cat"], []).append(int(d.id))
+            answers[name].append([(d.id, d.fields["cat"]) for d in docs])
+            want = {}
+            for i in np.argsort(((x - q) ** 2).sum(1), kind="stable"):
+                members = want.setdefault(int(cats[i]), [])
+                if len(members) < 2:
+                    members.append(int(i))
+                if len(want) >= 10 and all(len(m) == 2 for m in list(want.values())[:10]):
+                    break
+            want = dict(list(want.items())[:10])
+            hit += sum(got.get(g) == m for g, m in want.items())
+            total += len(want)
+        shares[name] = hit / total
+    print(f"group-by {kind}: exact (query, group) pairs jax {shares['jax']:.4f} torch {shares['torch']:.4f}")
+    assert answers["torch"] == answers["jax"]
+    assert shares["torch"] == shares["jax"]
+    if kind == "hnsw":
+        assert shares["torch"] < 1.0  # ef = 24 is below the graph's saturation
+
+
 # ------------------------------------- configurations without a grouped beam
 FALLBACKS = [
     ("IP", {}, None, 2000),  # MIPS: the graph lives in an augmented L2 space

@@ -14,12 +14,21 @@ k-means on the card (SOAR-spilled lists optional) and probes its lists in
 batches there. Layers of more than 2,000,000 rows take the clustered build
 (k-means buckets, per-bucket exact kNN, one NN-descent round).
 `Collection.group_by_query` runs on every index; on an HNSW field it harvests
-the groups inside the beam. Sparse fields, multi-vector queries and multi-GPU
-sharding raise `NotImplementedError` until they are ported; embedding
-functions and rerankers are not exported yet.
+the groups inside the beam.
+
+Sparse fields run with FLAT (the exact scan) or HNSW (a single-level graph
+with a probed entry set; from 200,000 rows on its build takes candidates from
+k-means buckets of feature-hash signatures). A query over several vector
+fields is fused by `RrfReRanker` or `WeightedReRanker`; a dense + sparse pair
+is scored in one go per segment.
+
+Still refused: `init(mesh_devices > 1)` (multi-GPU sharding) and an explicit
+`route_quantize` tier on an HNSW index raise `NotImplementedError`; embedding
+functions are not exported.
 """
 
 from . import model as model
+from .extension import ReRanker, RrfReRanker, WeightedReRanker
 from .model import param as param
 from .model.collection import Collection
 from .model.doc import Doc
@@ -47,6 +56,7 @@ from .typing import (
     StatusCode,
     ZvecError,
 )
+from .tool import require_module
 from .typing.enum import LogLevel, LogType
 from .zvec import create_and_open, init, open
 
@@ -82,6 +92,11 @@ __all__ = [
     "AlterColumnOption",
     "HnswQueryParam",
     "IVFQueryParam",
+    # extensions
+    "ReRanker",
+    "RrfReRanker",
+    "WeightedReRanker",
+    "require_module",
     # typing
     "DataType",
     "IndexType",

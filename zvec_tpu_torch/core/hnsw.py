@@ -858,6 +858,69 @@ class HnswEngine(VectorIndexEngine):
         grp_s, grp_i, grp_g = (t[:nq].cpu().numpy() for t in out[2:])
         return grp_s, grp_i, grp_g.astype(np.int32)
 
+    def fused_sparse_dispatch(
+        self,
+        queries: np.ndarray,
+        mask: Optional[np.ndarray],
+        param,
+        topk: int,
+        sparse_args: tuple,  # (q_idx, q_val, doc_idx, doc_val, smask, vocab)
+    ):
+        """Run the HNSW beam AND a sparse padded-row top-k back to back
+        (`ops/fused.py::fused_hnsw_sparse_topk`): the dense+sparse
+        multi-vector shape with an ANN dense index. Returns (k, (d_sims,
+        d_ids, s_sims, s_ids) device tensors), or None where this engine
+        takes a path without the plain beam (a corpus below the brute-force
+        threshold, linear, quantized, the MIPS or hamming transform)."""
+        if self._n == 0:
+            return None
+        self._ensure_fresh()
+        queries, mask = self._normalize_query_args(queries, mask)
+        if (
+            self._mips
+            or self._hamming
+            or self.quantize != QuantizeType.UNDEFINED
+            or self._n < self.brute_force_threshold
+            or (isinstance(param, QueryParam) and param.is_linear)
+        ):
+            return None
+        from ..ops.fused import fused_hnsw_sparse_topk
+
+        nq = queries.shape[0]
+        ef = param.ef if isinstance(param, HnswQueryParam) else 500
+        k = min(topk, self._n)
+        ef = max(ef, k)
+        knobs = self._query_knobs(param)
+        dev = self._codes.device
+        dmask = None
+        if mask is not None:
+            fm = np.zeros(self._codes.shape[0], dtype=bool)
+            fm[: self._n] = mask
+            dmask = _to_dev(fm, dev)
+        qpad = np.zeros((bucket_queries(nq), queries.shape[1]), np.float32)
+        qpad[:nq] = queries
+        q_idx, q_val, doc_idx, doc_val, smask, vocab = sparse_args
+        g = self._dev
+        out = fused_hnsw_sparse_topk(
+            _to_dev(qpad, dev), self._codes, self._norms, g["l0"], g["upper_ids"],
+            g["upper_nbrs"], g["upper_down"], g["entry_rows"], dmask,
+            self._scan_budget(knobs),
+            q_idx, q_val, doc_idx, doc_val, smask, self._dequant,
+            topk=k,
+            vocab=vocab,
+            metric=self._search_metric,
+            ef=ef,
+            max_steps=ef + knobs["steps_slack"],
+            num_levels=g["num_levels"],
+            frontier=knobs["frontier"],
+            int4_packed=self._int4_packed,
+            visited_bits=self._visited_bits(knobs),
+            visited_bytes=knobs["visited_bytes"],
+            approx_merge=knobs["approx_merge"],
+            done_frac=knobs["done_frac"],
+        )
+        return k, out
+
     def _group_codes_dev(self, codes_np: np.ndarray, key) -> torch.Tensor:
         """The factorized group-code column on the device, padded to the
         engine's rows; cached by `key` (field, write version), so repeated

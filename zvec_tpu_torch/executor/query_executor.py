@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..db.collection_impl import CollectionImpl
+from ..extension.multi_vector_reranker import RrfReRanker, WeightedReRanker
 from ..extension.rerank_function import RerankFunction
 from ..model.doc import Doc
 from ..model.param.vector_query import VectorQuery
@@ -236,8 +237,12 @@ class QueryExecutor(ABC):
     ) -> List[Doc]:
         if not docs_map:
             raise ValueError("Query results is none")
-        if len(docs_map) == 1 and not ctx.reranker:
-            return next(iter(docs_map.values()))
+        if len(docs_map) == 1:
+            if not ctx.reranker or isinstance(
+                ctx.reranker, (RrfReRanker, WeightedReRanker)
+            ):
+                return next(iter(docs_map.values()))
+            return ctx.reranker.rerank(docs_map)
         return ctx.reranker.rerank(docs_map)
 
     def execute(self, ctx: QueryContext, impl: CollectionImpl) -> List[Doc]:
@@ -417,11 +422,6 @@ class MultiVectorQueryExecutor(QueryExecutor):
         if len(ctx.queries) > 1 and ctx.reranker is None:
             raise ValueError(
                 "multi-vector query requires a reranker (`query_executor.py:283`)"
-            )
-        if len(ctx.queries) > 1:
-            # the RRF / weighted rerankers are not ported yet
-            raise NotImplementedError(
-                "multi-vector queries are not supported by zvec_tpu_torch yet"
             )
 
     def _do_build(self, ctx, impl):

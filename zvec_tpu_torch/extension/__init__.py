@@ -1,9 +1,10 @@
-"""Extension points ported so far: the reranker base classes.
+"""Extension points ported so far: the reranker base classes and the RRF /
+weighted multi-vector rerankers.
 
-Embedding functions and the RRF / weighted multi-vector rerankers are not
-ported yet.
+Embedding functions (BM25, the local and hosted providers) are not ported.
 """
 
+from .multi_vector_reranker import RrfReRanker, WeightedReRanker
 from .rerank_function import ReRanker, RerankFunction
 
-__all__ = ["ReRanker", "RerankFunction"]
+__all__ = ["ReRanker", "RerankFunction", "RrfReRanker", "WeightedReRanker"]
