@@ -1,6 +1,6 @@
 """Smoke run of zvec_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,sparse,fusion]
+    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,sparse,fusion,tools]
 
 With no arguments every phase runs and the two JSON lines are printed; a
 subset of phases (for work on one path) prints no JSON line.
@@ -54,14 +54,23 @@ Phases (any failure raises, and the exit code is non-zero):
      the path -> insert (batches of 1024) -> optimize (k-means buckets,
      per-bucket exact kNN, forward prune, one NN-descent round, reverse +
      merge, on bf16 build codes) -> flush -> batch_query_many over 4 blocks
-     of 1024 queries at ef 32 / 64 / 96 / 128 / 256 (recall@10 against the
+     of 1024 queries at ef 32 / 64 / 128 / 256 (recall@10 against the
      exact oracle: >= 0.95 at ef=128, >= 0.965 at ef=256), no K1 launch in
      the build, the hashed visited set in the beam, 64 group_by_query calls
      at ef=256 (>= 0.9 of the (query, group) pairs equal to the exact
      grouping under the harvest buffer's rule), the CUDA beam and grouped beam against the CPU's (64 / 16
      queries), bucket_knn_all on the card against the CPU for 8
      buckets of the build, profiles of one forward-prune and one NN-descent
-     batch, and a reopen that loads the graph without k-means or prune
+     batch, and a reopen that loads the graph without k-means or prune. Then
+     routed traversal on the same graph: the collection's graph file loaded
+     into an engine with an int8 route tier, then one with a bf16 tier (no
+     graph build; the route is made from the codes), each at ef 64 / 128 / 256
+     beside the unrouted engine: recall@10 (within 0.02 of the unrouted),
+     ms per 1024-query batch (median of 3), the largest error of a returned
+     score against its exact fp32 score (<= 1e-3 relative), the route's build
+     seconds, peak device memory, a profiled ef=128 batch with the code
+     gathers' share of device time (beside the unrouted engine's), and the
+     routed beam on the card against the CPU on 16 queries
   9. the sparse HNSW path through the public API, on the deployment of
      benchmarks/bench_sparse1m.py with its rows cut from 1,000,000 to 250,000:
      one SPARSE_VECTOR_FP32 field, HnswIndexParam(IP, m=16,
@@ -85,6 +94,15 @@ Phases (any failure raises, and the exit code is non-zero):
      latency, batch_fused_query, the two batch_query calls the fused pair
      replaces; every fused answer equals the port's reranker over the two
      per-field answers, the fused pair was taken, and K1 was not launched
+ 11. tools: the command-line tools through their main(argv), as `python -m`
+     runs them, on 100,000 rows of phase 4's generator (cut from 1,000,000):
+     tools.io.write_vecs, tools.build --index flat and --index hnsw (m 16,
+     ef_construction 200), tools.recall against ground truth from the exact
+     oracle on the card (FLAT recall@10 1.0; HNSW equal to the recall of
+     batch_query_many on the same collection), tools.bench for 5 s at batch 1
+     and 1024 on both (qps, p50, p99), K1's launches on the FLAT path; then the
+     three examples of zvec_tpu_torch/examples/ on the card, whose ids must
+     equal those of a CPU run of the same examples (a process that sees no card)
 
 Phases 3 and 3b print, beside each stage-one time, its bound (the larger of
 the split-TF32 tensor-core work over 495 TFLOP/s and the bytes over 3.35
@@ -99,8 +117,11 @@ card; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -141,7 +162,7 @@ PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12  # device memory rate
 # phase 8: bench_10m_hnsw.py's deployment, rows cut from 10,000,000
 CL_N = 2_500_000
-CL_EFS = (32, 64, 96, 128, 256)
+CL_EFS = (32, 64, 128, 256)
 CL_FLOORS = {128: 0.95, 256: 0.965}  # recall@10
 # recall@10 of zvec_tpu on the uncut 10M deployment on its own chip
 # (benchmarks/h2h10m_results.json); recall only, a smaller corpus should read no lower
@@ -182,7 +203,15 @@ SP_CHECK_Q, SP_CHECK_EF, SP_CHECK_ROWS = 16, 64, 65_536
 SP_RTOL = 1e-5  # card vs CPU: scores, and the width of a near-tie
 # phase 10: bench_suite.py's config #5 (its SEED = 7)
 FU_N, FU_D, FU_VOCAB, FU_NNZ, FU_Q, FU_SEED = 100_000, 64, 30_000, 24, 64, 7 + 2
-PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "sparse", "fusion")
+# phase 8, routed traversal: the same graph loaded into engines with an int8
+# and a bf16 route tier
+RT_EFS = (64, 128, 256)
+RT_MAX_RECALL_LOSS = 0.02  # routed recall@10 at each ef within this of the unrouted beam's
+RT_SCORE_RTOL = 1e-3  # returned scores against the exact fp32 ones, relative
+RT_CHECK_Q = 16  # queries of the routed beam held card against CPU
+# phase tools: phase 4's generator with its rows cut from 1,000,000
+TL_N, TL_GT_Q, TL_EF, TL_BENCH_S = 100_000, 128, 128, 5.0
+PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "sparse", "fusion", "tools")
 
 
 def log(msg: str) -> None:
@@ -535,22 +564,30 @@ def phase_kernel_build_shape() -> dict:
 
 
 def _beam_on(engine, qs: np.ndarray, dev: torch.device, cpu_cache: dict, **kw):
-    """The engine's beam on `dev`, on CPU copies of its tensors for the CPU."""
+    """The engine's beam on `dev`, on CPU copies of its tensors for the CPU. A
+    routed engine's beam walks its route tier and re-ranks on the fp32 codes."""
     from zvec_tpu_torch.ops.hnsw import hnsw_search
 
     g = engine._dev
     if dev.type == "cpu" and not cpu_cache:
+        route = engine._route
         cpu_cache.update(
             codes=engine._codes.cpu(), norms=engine._norms.cpu(), l0=g["l0"].cpu(),
+            route=None if route is None else (route[0].cpu(), route[1].cpu(), route[2]),
             **{k: [x.cpu() for x in g[k]] for k in ("upper_ids", "upper_nbrs", "upper_down")},
         )
-    t = cpu_cache if dev.type == "cpu" else dict(g, codes=engine._codes, norms=engine._norms)
+    t = cpu_cache if dev.type == "cpu" else dict(g, codes=engine._codes, norms=engine._norms,
+                                                  route=engine._route)
+    if t["route"] is None:
+        walk, refine = (t["codes"], t["norms"], None), (None, None)
+    else:
+        walk, refine = t["route"], (t["codes"], t["norms"])
     if kw.get("group_codes") is not None:
         kw["group_codes"] = kw["group_codes"].to(dev)
     budget = min(max(10_000, int(0.1 * engine._n)), engine._n)
     return hnsw_search(
-        torch.from_numpy(qs).to(dev), t["codes"], t["norms"], t["l0"], t["upper_ids"],
-        t["upper_nbrs"], t["upper_down"], g["entry_rows"], None, budget, None,
+        torch.from_numpy(qs).to(dev), walk[0], walk[1], t["l0"], t["upper_ids"],
+        t["upper_nbrs"], t["upper_down"], g["entry_rows"], None, budget, walk[2], *refine,
         metric=engine._search_metric, ef=BEAM_CHECK_EF, max_steps=BEAM_CHECK_EF + 64,
         num_levels=g["num_levels"], frontier=4, done_frac=1.0, **kw,
     )
@@ -588,14 +625,18 @@ def _beam_check(engine, qs: np.ndarray, label: str, visited_bits: int = 0, group
             raise AssertionError(f"{label}: the CUDA {name} disagrees with the CPU {name}")
 
 
-def _profiled(label: str, fn) -> None:
+def _profiled(label: str, fn, gather_shape=None):
     """Run fn() once warm, then once under torch.profiler: print the wall
-    time, the device busy share and the top device ops (self device time)."""
+    time, the device busy share and the top device ops (self device time).
+    With `gather_shape` (rows, cols of a code table), also return the share of
+    device time spent in gathers from tables of that shape (`aten::index` on
+    it: the beam's code gathers and, when routed, the refine's fp32 gather)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=gather_shape is not None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -613,13 +654,27 @@ def _profiled(label: str, fn) -> None:
         f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), idle {100 - 100 * busy / (wall * 1e3):.1f}%")
     for ms, count, key in rows[:8]:
         log(f"  device {ms:9.3f} ms  x{count:<6d} {key[:90]}")
+    if gather_shape is None:
+        return None
+    gather = 0.0
+    for ev in prof.key_averages(group_by_input_shape=True):
+        shapes = getattr(ev, "input_shapes", None) or [[]]
+        if ev.key == "aten::index" and list(shapes[0]) == list(gather_shape):
+            dt = getattr(ev, "device_time_total", None)
+            gather += (getattr(ev, "cuda_time_total", 0.0) if dt is None else dt) / 1e3
+    if gather <= 0.0:
+        log(f"  code gathers from ({gather_shape[0]}, {gather_shape[1]}) tables: not measured "
+            f"(no device time on aten::index with that input shape)")
+        return None
+    log(f"  code gathers from ({gather_shape[0]}, {gather_shape[1]}) tables: {gather:.3f} ms, "
+        f"{100 * gather / busy:.1f}% of device time")
+    return gather / busy
 
 
 def _profile_build_batch(engine, X) -> None:
-    """One forward batch (`knn_build_step`: K1 + stage two + prune) and one
-    merge batch (`merge_prune_step`, 2 x max_out candidates) of the 1M
+    """One forward batch (`knn_build_step`: K1 + stage two + prune) of the 1M
     build, profiled on the build's padded codes."""
-    from zvec_tpu_torch.ops.hnsw import knn_build_step, merge_prune_step
+    from zvec_tpu_torch.ops.hnsw import knn_build_step
 
     dev = torch.device("cuda")
     codes = torch.zeros((N_BUILD_PAD, D), device=dev)
@@ -632,10 +687,6 @@ def _profile_build_batch(engine, X) -> None:
     kw = dict(metric=engine._search_metric, max_out=m0)
     _profiled(f"hnsw build forward batch (B={Q_BUILD}, knn_k={K_BUILD - 1})",
               lambda: knn_build_step(rows, codes, norms2, mask, adj, knn_k=K_BUILD - 1, **kw))
-    l0 = engine._dev["l0"]
-    cand = torch.cat([l0[rows], l0[rows + Q_BUILD]], dim=1)
-    _profiled(f"hnsw build merge batch (B={Q_BUILD}, C={2 * m0})",
-              lambda: merge_prune_step(rows, cand, codes, norms2, adj, **kw))
 
 
 def _group_by_check(col, X, grp: np.ndarray, queries: np.ndarray, label: str, *,
@@ -1055,6 +1106,97 @@ def _profile_clustered_batch(engine, X: np.ndarray, dev: torch.device) -> None:
               lambda: nn_descent_round(rows, fwd, codes, norms2, expand=expand, **kw))
 
 
+def _search_timed(engine, queries: np.ndarray, ef: int):
+    """The engine's own search at ef with every other knob at its default:
+    (sims, ids, median ms of 3 batches after the first)."""
+    import zvec_tpu_torch as zt
+
+    param = zt.HnswQueryParam(ef=ef)
+    sims, idx = engine.search(queries, K, None, param)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.search(queries, K, None, param)
+        times.append(time.perf_counter() - t0)
+    return sims, idx, statistics.median(times) * 1e3
+
+
+def _routed_sweep(engine, path: Path, X: np.ndarray, queries: np.ndarray, exp: np.ndarray,
+                  vbits: int) -> None:
+    """Routed traversal on the clustered graph: the collection's graph file
+    loaded into an engine with an int8 route tier, then one with a bf16 tier
+    (no graph build), each swept at RT_EFS beside the unrouted engine: recall@10
+    against the exact oracle, ms per 1024-query batch, the largest error of a
+    returned score against its exact fp32 score, the route's build seconds,
+    peak device memory, a profiled ef=128 batch (the code gathers' share of
+    device time) and the routed beam card against CPU on RT_CHECK_Q queries."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.core.hnsw import HnswEngine
+    from zvec_tpu_torch.ops.kmeans import lloyd
+
+    aux = next(path.rglob("hnsw_*.npz"))
+    shape = tuple(engine._codes.shape)
+    base = {}
+    for ef in RT_EFS:
+        _, idx, ms = _search_timed(engine, queries, ef)
+        base[ef] = (_recall(idx, exp), ms)
+    param = zt.HnswQueryParam(ef=128)
+    base_share = _profiled(f"hnsw clustered beam ef=128, unrouted ({Q} queries)",
+                           lambda: engine.search(queries, K, None, param), gather_shape=shape)
+    xq = queries.astype(np.float64)
+    calls = lloyd.calls
+    for mode in ("int8", "bf16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = HnswEngine(zt.MetricType.L2, D, zt.HnswIndexParam(
+            zt.MetricType.L2, m=50, ef_construction=500, route_quantize=mode))
+        eng.load_aux(str(aux.parent), {"file": aux.name})
+        eng.bind_data(lambda: X, lambda: 1)
+        t0 = time.perf_counter()
+        eng._ensure_fresh()
+        load_s = time.perf_counter() - t0
+        route = eng._route
+        if route is None or route[0].device != engine._codes.device or set(eng.build_times) != {"route"}:
+            raise AssertionError(f"hnsw clustered route {mode}: no route tier on the card, or a graph build")
+        if lloyd.calls != calls or not np.array_equal(eng._graph.l0, engine._graph.l0):
+            raise AssertionError(f"hnsw clustered route {mode}: the engine did not load the collection's graph")
+        log(f"hnsw clustered route {mode}: {aux.name} loaded into a routed engine in {load_s:.2f} s "
+            f"(route tier {route[0].dtype} {tuple(route[0].shape)}, built in {eng.build_times['route']:.2f} s)")
+        worst_abs = worst_rel = 0.0
+        for ef in RT_EFS:
+            sims, idx, ms = _search_timed(eng, queries, ef)
+            rec = _recall(idx, exp)
+            if idx.shape != (Q, K) or (idx < 0).any() or not np.isfinite(sims).all():
+                raise AssertionError(f"hnsw clustered route {mode}: results are not (1024, 10) finite scores")
+            exact = -((X[idx].astype(np.float64) - xq[:, None, :]) ** 2).sum(-1)
+            err = np.abs(sims - exact)
+            worst_abs = max(worst_abs, float(err.max()))
+            worst_rel = max(worst_rel, float((err / np.maximum(np.abs(exact), 1.0)).max()))
+            b_rec, b_ms = base[ef]
+            log(f"hnsw clustered route {mode}: ef={ef}: {ms:.2f} ms per {Q}-query batch (median of 3; "
+                f"unrouted {b_ms:.2f} ms), recall@{K} {rec:.4f} (unrouted {b_rec:.4f}, "
+                f"{rec - b_rec:+.4f})")
+            if rec < b_rec - RT_MAX_RECALL_LOSS:
+                raise AssertionError(f"hnsw clustered route {mode}: recall@10 at ef={ef} is {rec:.4f}, "
+                                     f"more than {RT_MAX_RECALL_LOSS} below the unrouted {b_rec:.4f}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"hnsw clustered route {mode}: max |score - exact fp32 score| {worst_abs:.3g} "
+            f"({worst_rel:.3g} relative); route build {eng.build_times['route']:.2f} s; peak device "
+            f"memory {peak_gb:.3f} GB (the unrouted collection still resident)")
+        if worst_rel > RT_SCORE_RTOL:
+            raise AssertionError(f"hnsw clustered route {mode}: scores are not fp32-exact")
+        share = _profiled(f"hnsw clustered beam ef=128, {mode} route ({Q} queries)",
+                          lambda: eng.search(queries, K, None, param), gather_shape=shape)
+        if share is not None and base_share is not None:
+            log(f"hnsw clustered route {mode}: code gathers {100 * share:.1f}% of device time at ef=128 "
+                f"(unrouted {100 * base_share:.1f}%)")
+        _beam_check(eng, queries[:RT_CHECK_Q], f"hnsw clustered route {mode}", visited_bits=vbits)
+        del eng, route
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
     """The clustered build at 2.5M rows, picked by the size rule: build, sweep
     ef, check the build's pieces card against CPU, reopen."""
@@ -1136,6 +1278,7 @@ def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
     for ef, floor in CL_FLOORS.items():
         if recalls[ef] < floor:
             raise AssertionError(f"hnsw clustered: recall@10 at ef={ef} is {recalls[ef]:.4f} < {floor}")
+    _routed_sweep(engine, path, X, queries, exp, vbits)
 
     _group_by_check(col, X, grp, queries, "hnsw clustered", **GRP_CLUSTERED)
     _beam_check(engine, queries[:BEAM_CHECK_Q], "hnsw clustered", visited_bits=vbits,
@@ -1552,14 +1695,146 @@ def phase_fusion(workdir: Path) -> int:
     return launches
 
 
+def _run_tool(mod, argv) -> dict:
+    """A tool's main(argv), as `python -m` runs it: its JSON output, parsed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    return json.loads(buf.getvalue())
+
+
+# the CPU run of the examples, in a process that sees no card
+_EXAMPLES_ON_CPU = (
+    "import json\n"
+    "from zvec_tpu_torch.ops.runtime import device\n"
+    "from zvec_tpu_torch.examples import hybrid_multivector, quantized_groupby, quickstart\n"
+    "assert device().type == 'cpu'\n"
+    "print(json.dumps({m.__name__.rsplit('.', 1)[1]: m.main() "
+    "for m in (quickstart, hybrid_multivector, quantized_groupby)}))\n"
+)
+
+
+def _tools_bench(col: str, qf: str, label: str, extra=()) -> None:
+    from zvec_tpu_torch.tools import bench
+
+    for batch in (1, Q):
+        out = _run_tool(bench, ["--collection", col, "--field", "emb", "--queries", qf,
+                                "--batch", str(batch), "--seconds", str(TL_BENCH_S), *extra])
+        log(f"tools {label}: tools.bench --batch {batch} for {TL_BENCH_S:g} s: {out['qps']:.1f} qps, "
+            f"p50 {out['p50']:.3f} ms, p99 {out['p99']:.3f} ms per call ({out['queries']} queries)")
+        if out["qps"] <= 0:
+            raise AssertionError(f"tools {label}: bench measured nothing")
+
+
+def phase_tools(workdir: Path, dev: torch.device) -> int:
+    """The command-line tools through their main(argv), as `python -m` runs
+    them, on TL_N rows of phase 4's generator: write the vectors, build a FLAT
+    and an HNSW collection, read their recall against ground truth from the
+    exact oracle on the card, bench them; then the three examples on the card
+    against a CPU run of the same examples. Returns K1's launches on the FLAT
+    collection's path (build, recall, bench)."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.examples import hybrid_multivector, quantized_groupby, quickstart
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.tools import build, recall
+    from zvec_tpu_torch.tools.io import write_vecs
+
+    qset, X = _data()
+    queries, X = qset[0], np.ascontiguousarray(X[:TL_N])
+    del qset
+    d = workdir / "tools"
+    d.mkdir()
+    base, qf, gtf = str(d / "base.fvecs"), str(d / "queries.fvecs"), str(d / "gt.ivecs")
+    t0 = time.perf_counter()
+    write_vecs(base, X)
+    write_vecs(qf, queries)
+    _, oi = _exact_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(queries[:TL_GT_Q]).to(dev), k=K)
+    gt = oi.cpu().numpy().astype(np.int32)
+    write_vecs(gtf, gt)
+    log(f"tools: {TL_N} x {D} rows and {Q} queries written with tools.io.write_vecs, ground truth of "
+        f"{TL_GT_Q} queries from the exact oracle on the card, in {time.perf_counter() - t0:.2f} s")
+    rec_args = ["--field", "emb", "--queries", qf, "--ground-truth", gtf, "--topk", "1,10",
+                "--limit", str(TL_GT_Q)]
+
+    flat = str(d / "flat")
+    flat_scan_topk.launches = 0
+    out = _run_tool(build, ["--output", flat, "--vectors", base, "--index", "flat"])
+    log(f"tools flat: tools.build --index flat: {out['docs']} docs, insert {out['insert_s']} s, "
+        f"index build {out['index_build_s']} s")
+    rec = _run_tool(recall, ["--collection", flat, *rec_args])
+    log(f"tools flat: tools.recall: recall@1 {rec['recall@1']:.4f}, recall@10 {rec['recall@10']:.4f} on "
+        f"{rec['queries']} queries, {rec['avg_latency_ms']:.3f} ms per query")
+    _tools_bench(flat, qf, "flat")
+    launches = flat_scan_topk.launches
+    log(f"tools flat: K1 launches on the FLAT collection's path (build, recall, bench) {launches}")
+    if rec["recall@10"] != 1.0 or rec["queries"] != TL_GT_Q:
+        raise AssertionError("tools flat: recall@10 of the exact scan is not 1.0")
+    if launches == 0:
+        raise AssertionError("tools flat: the FLAT query path never launched the flat-scan kernel")
+
+    hnsw = str(d / "hnsw")
+    flat_scan_topk.launches = 0
+    out = _run_tool(build, ["--output", hnsw, "--vectors", base, "--index", "hnsw"])
+    log(f"tools hnsw: tools.build --index hnsw (m 16, ef_construction 200): {out['docs']} docs, insert "
+        f"{out['insert_s']} s, index build {out['index_build_s']} s; K1 launches in the build "
+        f"{flat_scan_topk.launches} (knn_k 200 > 127 takes the blockwise scan)")
+    rec = _run_tool(recall, ["--collection", hnsw, *rec_args, "--ef", str(TL_EF)])
+    col = zt.open(hnsw)
+    res = col.batch_query_many("emb", [queries[:TL_GT_Q]], topk=K, output_fields=[],
+                               param=zt.HnswQueryParam(ef=TL_EF, done_frac=1.0))[0]
+    col._impl.close()
+    api = recall.compute_recall(_ids(res), gt.astype(np.int64), [1, 10])
+    log(f"tools hnsw: tools.recall --ef {TL_EF}: recall@1 {rec['recall@1']:.4f}, recall@10 "
+        f"{rec['recall@10']:.4f}, {rec['avg_latency_ms']:.3f} ms per query; batch_query_many on the same "
+        f"collection: recall@1 {api['recall@1']:.4f}, recall@10 {api['recall@10']:.4f}")
+    if (rec["recall@1"], rec["recall@10"]) != (api["recall@1"], api["recall@10"]):
+        raise AssertionError("tools hnsw: tools.recall and the API read another recall")
+    _tools_bench(hnsw, qf, "hnsw", ("--ef", str(TL_EF)))
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    proc = subprocess.Popen([sys.executable, "-c", _EXAMPLES_ON_CPU], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        card, secs = {}, {}
+        for mod in (quickstart, hybrid_multivector, quantized_groupby):
+            name = mod.__name__.rsplit(".", 1)[1]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                card[name] = json.loads(json.dumps(mod.main(str(d / f"example_{name}"))))
+            secs[name] = time.perf_counter() - t0
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: the CPU run of the examples failed: {stderr[-2000:]}")
+    cpu = json.loads(stdout.strip().splitlines()[-1])
+    for name, ids in card.items():
+        log(f"tools: example {name} on the card in {secs[name]:.2f} s: {ids}; "
+            f"{'the same ids' if cpu[name] == ids else 'OTHER ids'} on the CPU")
+    if cpu != card:
+        raise AssertionError("tools: an example printed other ids on the card than on the CPU")
+    return launches
+
+
 def main() -> None:
     phases = PHASES
     if len(sys.argv) > 1:
         if len(sys.argv) != 3 or sys.argv[1] != "--phases" or not set(sys.argv[2].split(",")) <= set(PHASES):
             raise SystemExit(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
         phases = tuple(sys.argv[2].split(","))
+    t_run = time.perf_counter()
+    mark = [t_run]
+
+    def lap(name: str) -> None:  # a phase's wall seconds, for the time limit
+        now = time.perf_counter()
+        log(f"phase {name}: {now - mark[0]:.1f} s ({now - t_run:.1f} s since the start)")
+        mark[0] = now
+
     smi = phase_toolchain()
     phase_build()
+    lap("build")
     dev = torch.device("cuda")
     case = build_case = None
     launches = {}
@@ -1568,6 +1843,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         build_case = phase_kernel_build_shape()
         torch.cuda.empty_cache()
+        lap("kernel")
     workdir = REPO / "zvec_tpu_torch" / "_build" / "smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -1578,8 +1854,10 @@ def main() -> None:
                 launches["flat_search"] = phase_main_path(workdir, qset, X)
                 gc.collect()
                 torch.cuda.empty_cache()
+                lap("flat")
             if "hnsw" in phases:
                 launches["hnsw_build"] = phase_hnsw(workdir, qset, X)
+                lap("hnsw")
             del qset, X
             gc.collect()
             torch.cuda.empty_cache()
@@ -1587,16 +1865,24 @@ def main() -> None:
             launches["ivf"] = phase_ivf(workdir, dev)
             gc.collect()
             torch.cuda.empty_cache()
+            lap("ivf")
         if "clustered" in phases:
             launches["hnsw_clustered_build"] = phase_hnsw_clustered(workdir, dev)
             gc.collect()
             torch.cuda.empty_cache()
+            lap("clustered")
         if "sparse" in phases:
             launches["sparse"] = phase_sparse(workdir, dev)
             gc.collect()
             torch.cuda.empty_cache()
+            lap("sparse")
         if "fusion" in phases:
             launches["fusion"] = phase_fusion(workdir)
+            gc.collect()
+            lap("fusion")
+        if "tools" in phases:
+            launches["tools_flat"] = phase_tools(workdir, dev)
+            lap("tools")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(smi)

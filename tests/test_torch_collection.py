@@ -298,6 +298,12 @@ def test_import_leaves_jax_out():
         "import zvec_tpu_torch.ops.hnsw_sparse; import zvec_tpu_torch.core.hnsw_sparse; "
         "import zvec_tpu_torch.ops.fused; import zvec_tpu_torch.tool.util; "
         "import zvec_tpu_torch.extension.multi_vector_reranker; "
+        "import zvec_tpu_torch.extension.providers; "
+        "import zvec_tpu_torch.extension.bm25_embedding_function; "
+        "import zvec_tpu_torch.tools.build, zvec_tpu_torch.tools.recall, zvec_tpu_torch.tools.bench; "
+        "import zvec_tpu_torch.tools.txt2vecs, zvec_tpu_torch.tools.io; "
+        "import zvec_tpu_torch.examples.quickstart, zvec_tpu_torch.examples.hybrid_multivector; "
+        "import zvec_tpu_torch.examples.quantized_groupby; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zvec_tpu' or m.startswith('zvec_tpu.') or m == 'triton']; "
         "assert not bad, bad"

@@ -246,21 +246,33 @@ def test_clustered_build_option_is_admitted():
 
 
 @pytest.mark.parametrize(
-    "kw,match",
+    "kw,knob",
     [
         ({"route_quantize": "int8"}, "route_quantize"),
         ({"route_quantize": "bf16"}, "route_quantize"),
     ],
 )
-def test_unported_build_options_raise(kw, match):
+def test_unported_build_options_raise(kw, knob):
+    """Once refused by the port, an explicit route tier now builds and routes
+    as in zvec_tpu: the same graph, the same route codes, the same answers
+    (tests/test_torch_route.py holds it to zvec_tpu at length)."""
     X = np.random.default_rng(15).standard_normal((300, DIM)).astype(np.float32)
-    p = zvec_tpu_torch
-    eng = tcore.HnswEngine(
-        p.MetricType.L2, DIM, p.HnswIndexParam(p.MetricType.L2, m=8, ef_construction=40, **kw)
-    )
-    eng.bind_data(lambda: X, lambda: 1)
-    with pytest.raises(NotImplementedError, match=match):
-        eng.search(X[:2], 5)
+    out = []
+    for pkg, core in ((zvec_tpu, jcore), (zvec_tpu_torch, tcore)):
+        eng = core.HnswEngine(pkg.MetricType.L2, DIM, pkg.HnswIndexParam(
+            pkg.MetricType.L2, m=8, ef_construction=40, brute_force_threshold=1, **kw))
+        eng.bind_data(lambda: X, lambda: 1)
+        assert getattr(eng, knob) == kw[knob]
+        out.append((eng, eng.search(X[:8], 5, param=pkg.HnswQueryParam(ef=16, done_frac=1.0))))
+    (je, (js, ji)), (te, (ts, ti)) = out
+    np.testing.assert_array_equal(te._graph.l0, je._graph.l0)
+    codes = te._route[0]
+    codes = codes.view(torch.int16) if codes.dtype == torch.bfloat16 else codes
+    jc = np.asarray(je._route[0])
+    np.testing.assert_array_equal(codes.numpy(), jc.view(np.int16) if jc.dtype.itemsize == 2 else jc)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-5)
+    assert ti[:, 0].tolist() == list(range(8))
 
 
 def test_route_quantize_ignored_on_quantized_index():

@@ -22,13 +22,36 @@ k-means buckets of feature-hash signatures). A query over several vector
 fields is fused by `RrfReRanker` or `WeightedReRanker`; a dense + sparse pair
 is scored in one go per segment.
 
-Still refused: `init(mesh_devices > 1)` (multi-GPU sharding) and an explicit
-`route_quantize` tier on an HNSW index raise `NotImplementedError`; embedding
-functions are not exported.
+An HNSW field with `route_quantize="int8"` or `"bf16"` walks its graph on
+reduced-precision codes and re-ranks on the fp32 codes. Text reaches a field
+through the embedding functions (`BM25EmbeddingFunction`, the OpenAI, Qwen and
+local sentence-transformers providers). `zvec_tpu_torch.tools` holds the
+command-line build, recall and bench tools; `zvec_tpu_torch.examples` holds
+runnable examples.
+
+Still refused: `init(mesh_devices > 1)` (multi-GPU sharding) raises
+`NotImplementedError`.
 """
 
 from . import model as model
-from .extension import ReRanker, RrfReRanker, WeightedReRanker
+from .extension import (
+    BM25EmbeddingFunction,
+    DefaultLocalDenseEmbedding,
+    DefaultLocalReRanker,
+    DefaultLocalSparseEmbedding,
+    DenseEmbeddingFunction,
+    OpenAIDenseEmbedding,
+    OpenAIFunctionBase,
+    QwenDenseEmbedding,
+    QwenFunctionBase,
+    QwenReRanker,
+    QwenSparseEmbedding,
+    ReRanker,
+    RrfReRanker,
+    SentenceTransformerFunctionBase,
+    SparseEmbeddingFunction,
+    WeightedReRanker,
+)
 from .model import param as param
 from .model.collection import Collection
 from .model.doc import Doc
@@ -92,11 +115,6 @@ __all__ = [
     "AlterColumnOption",
     "HnswQueryParam",
     "IVFQueryParam",
-    # extensions
-    "ReRanker",
-    "RrfReRanker",
-    "WeightedReRanker",
-    "require_module",
     # typing
     "DataType",
     "IndexType",
@@ -107,6 +125,24 @@ __all__ = [
     "ZvecError",
     "LogLevel",
     "LogType",
+    # extensions
+    "BM25EmbeddingFunction",
+    "DenseEmbeddingFunction",
+    "SparseEmbeddingFunction",
+    "ReRanker",
+    "RrfReRanker",
+    "WeightedReRanker",
+    "OpenAIFunctionBase",
+    "OpenAIDenseEmbedding",
+    "QwenFunctionBase",
+    "QwenDenseEmbedding",
+    "QwenSparseEmbedding",
+    "QwenReRanker",
+    "SentenceTransformerFunctionBase",
+    "DefaultLocalDenseEmbedding",
+    "DefaultLocalSparseEmbedding",
+    "DefaultLocalReRanker",
+    "require_module",
     # submodules
     "model",
     "param",

@@ -141,8 +141,8 @@ class HnswIndexParam(VectorIndexParam):
       the beam's per-step neighbor gathers (the dominant HBM cost at scale)
       read int8/bf16 codes, and the final working set re-ranks against the
       resident fp32 tier on device — scores stay fp32-exact. One of
-      "off" | "auto" | "bf16" | "int8"; auto = int8 above 2^21 rows.
-      Ignored on already-quantized indexes.
+      "off" | "auto" | "bf16" | "int8"; auto resolves to off, as in the JAX
+      engine. Ignored on already-quantized and hamming indexes.
     """
 
     index_type = IndexType.HNSW

@@ -33,11 +33,15 @@ Graph layout (tensors on one device):
     down_l   (N_l,)  int64       row of the same node in level l-1
                                  (level 1's down_l is the node id itself)
 
+Routed traversal: the beam may walk a reduced-precision code tier (int8 or
+bf16 codes of an fp32 index) and re-rank its final working set once against
+the fp32 tier (`refine_codes` / `refine_norms`), so returned scores stay
+fp32-exact.
+
 Left out against the JAX module: the bf16 hi/lo product splits (an MXU pass
 trick; products here are full float32, TF32 off), `approx_max_k` (accepted
-and run exact, in the beam's merges and in `bucket_knn_all`), the routed
-refine tier, and the packed D2H transfer (`hnsw_search_packed`, a TPU
-workaround: this returns tensors).
+and run exact, in the beam's merges and in `bucket_knn_all`), and the packed
+D2H transfer (`hnsw_search_packed`, a TPU workaround: this returns tensors).
 """
 
 from __future__ import annotations
@@ -190,6 +194,8 @@ def hnsw_search(
     mask: Optional[torch.Tensor],  # (N_pad,) bool result filter or None
     scan_budget: int,
     dequant=None,
+    refine_codes: Optional[torch.Tensor] = None,  # (N_pad, D) fp32 exact tier
+    refine_norms: Optional[torch.Tensor] = None,  # (N_pad,) fp32
     *,
     metric: MetricType,
     ef: int,
@@ -216,6 +222,11 @@ def hnsw_search(
     `hnsw_algorithm.cc:102-104`), and returns (sims, ids, grp_sims, grp_ids,
     grp_codes). The buffer is harvest only: it never steers the traversal or
     its termination, so the cost does not grow with the number of groups.
+
+    `refine_codes` / `refine_norms` (routed traversal): the beam navigates on
+    `codes` (int8 or bf16), then the whole working set (kw = max(ef, topk)
+    rows per query) is scored once against this fp32 tier and the top-k
+    taken from those scores.
 
     visited_bytes=True keeps the (hashed) visited set as a byte map: a set
     is duplicate-safe, so the per-step dedup sort is elided and a
@@ -403,7 +414,13 @@ def hnsw_search(
     hnsw_search.last_steps = step
     if not track_res:
         res_s, res_i = cand_s, cand_i
-    res_s, res_i = res_s[:, :topk], res_i[:, :topk]
+    if refine_codes is not None:
+        safe = res_i.clamp_min(0)
+        ex = _batched_sims(q, refine_codes[safe], metric, refine_norms[safe])
+        res_s, sel = topk_desc(torch.where(res_i >= 0, ex, NEG_INF), topk)
+        res_i = res_i.gather(1, sel)
+    else:
+        res_s, res_i = res_s[:, :topk], res_i[:, :topk]
     res_i = torch.where(res_s > NEG_INF / 2, res_i, -1)
     if grouped:
         return res_s, res_i, grp_s, grp_i, grp_g
