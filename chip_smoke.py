@@ -1,9 +1,11 @@
 """Smoke run of zvec_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,sparse,fusion,tools]
+    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,sparse,fusion,tools,mesh]
 
 With no arguments every phase runs and the two JSON lines are printed; a
-subset of phases (for work on one path) prints no JSON line.
+subset of phases (for work on one path) prints no JSON line. `mesh` reopens
+the collections of `flat`, `hnsw` and `ivf`, so a subset that names it names
+those three too.
 
 Phases (any failure raises, and the exit code is non-zero):
   1. toolchain: torch / CUDA / nvcc versions and the card's name and power limit
@@ -49,7 +51,8 @@ Phases (any failure raises, and the exit code is non-zero):
   8. the clustered HNSW build through the public API, on the deployment of
      benchmarks/bench_10m_hnsw.py (the repo's 10M x 128 recipe, after the
      upstream Cohere-10M HNSW recipe) with its rows cut from 10,000,000 to
-     2,500,000: clustered L2 docs (250 centres), HnswIndexParam(L2, m=50,
+     2,100,000 (still above the size rule's 2,000,000): clustered L2 docs
+     (210 centres), HnswIndexParam(L2, m=50,
      ef_construction=500) and no clustered_build set, so the size rule picks
      the path -> insert (batches of 1024) -> optimize (k-means buckets,
      per-bucket exact kNN, forward prune, one NN-descent round, reverse +
@@ -64,7 +67,7 @@ Phases (any failure raises, and the exit code is non-zero):
      batch, and a reopen that loads the graph without k-means or prune. Then
      routed traversal on the same graph: the collection's graph file loaded
      into an engine with an int8 route tier, then one with a bf16 tier (no
-     graph build; the route is made from the codes), each at ef 64 / 128 / 256
+     graph build; the route is made from the codes), each at ef 128 / 256
      beside the unrouted engine: recall@10 (within 0.02 of the unrouted),
      ms per 1024-query batch (median of 3), the largest error of a returned
      score against its exact fp32 score (<= 1e-3 relative), the route's build
@@ -103,6 +106,23 @@ Phases (any failure raises, and the exit code is non-zero):
      and 1024 on both (qps, p50, p99), K1's launches on the FLAT path; then the
      three examples of zvec_tpu_torch/examples/ on the card, whose ids must
      equal those of a CPU run of the same examples (a process that sees no card)
+ 12. mesh: graft_entry.dryrun_multichip(4) on the card, then GlobalConfig
+     mesh_devices = 4 (as the JAX package's dry run turns its mesh on) and the
+     collections of phases 4, 6 and 7 reopened under 4 corpus shards, all on
+     the one card: FLAT (4 x 253,952 rows; batch_query_many of 4 blocks of
+     1024 at top-10, recall 1.0 and phase 4's ids outside near-ties, K1
+     launched on every shard); HNSW rebuilt through create_index with knn_k =
+     127 (the pool phase 6's 1M layer gets from the size rule; a 250,112-row
+     shard would get 500 and the blockwise scan) into 4 shard graphs on K1,
+     per-shard build seconds, ef 128 / 256 recall@10 no more than 0.01 under
+     phase 6's, the sharded beam on the card against CPU copies of the shards
+     on 16 queries, and a reopen that loads the sharded graph file without a
+     build; IVF without k-means, recall@10 at nprobe 16 no more than 0.001
+     under phase 7's, the 5% filter at recall 1.0; then 50,000 of phase 9's
+     documents (rows cut from 250,000 for time, widths kept) in a sparse HNSW
+     field of 4 shards built by the exact per-shard pass: the sparse FLAT scan
+     (is_linear) at recall >= 0.999 and the beam at ef 128 within 0.02 of an
+     unsharded engine on the same documents; peak device memory
 
 Phases 3 and 3b print, beside each stage-one time, its bound (the larger of
 the split-TF32 tensor-core work over 495 TFLOP/s and the bytes over 3.35
@@ -161,7 +181,7 @@ PROBE_RTOL = 1e-4  # CUDA probe vs CPU probe: scores, and the width of a near-ti
 PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12  # device memory rate
 # phase 8: bench_10m_hnsw.py's deployment, rows cut from 10,000,000
-CL_N = 2_500_000
+CL_N = 2_100_000  # still above the size rule's 2,000,000 rows
 CL_EFS = (32, 64, 128, 256)
 CL_FLOORS = {128: 0.95, 256: 0.965}  # recall@10
 # recall@10 of zvec_tpu on the uncut 10M deployment on its own chip
@@ -205,13 +225,22 @@ SP_RTOL = 1e-5  # card vs CPU: scores, and the width of a near-tie
 FU_N, FU_D, FU_VOCAB, FU_NNZ, FU_Q, FU_SEED = 100_000, 64, 30_000, 24, 64, 7 + 2
 # phase 8, routed traversal: the same graph loaded into engines with an int8
 # and a bf16 route tier
-RT_EFS = (64, 128, 256)
+RT_EFS = (128, 256)
 RT_MAX_RECALL_LOSS = 0.02  # routed recall@10 at each ef within this of the unrouted beam's
 RT_SCORE_RTOL = 1e-3  # returned scores against the exact fp32 ones, relative
 RT_CHECK_Q = 16  # queries of the routed beam held card against CPU
 # phase tools: phase 4's generator with its rows cut from 1,000,000
 TL_N, TL_GT_Q, TL_EF, TL_BENCH_S = 100_000, 128, 128, 5.0
-PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "sparse", "fusion", "tools")
+# phase mesh: the collections of phases 4, 6 and 7 reopened under 4 shards
+MESH_SHARDS = 4
+MESH_KNN_K = 127  # the shard builds' candidate pool: what phase 6's 1M layer gets from the size rule
+MESH_HNSW_EFS = (128, 256)
+MESH_HNSW_SLACK = 0.01  # sharded recall@10 at each ef >= phase 6's unsharded, less this
+MESH_IVF_NPROBE, MESH_IVF_SLACK = 16, 0.001
+MESH_SP_N, MESH_SP_EF, MESH_SP_SLACK = 50_000, 128, 0.02  # phase 9's rows cut to 50,000
+MESH_CHECK_Q = 16  # queries of the sharded beam held card against CPU
+PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "sparse", "fusion", "tools", "mesh")
+MESH_NEEDS = ("flat", "hnsw", "ivf")
 
 
 def log(msg: str) -> None:
@@ -440,7 +469,7 @@ def _data():
     return qset, X
 
 
-def phase_main_path(workdir: Path, qset, X) -> int:
+def phase_main_path(workdir: Path, qset, X, base: dict) -> int:
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
 
@@ -497,6 +526,7 @@ def phase_main_path(workdir: Path, qset, X) -> int:
     score_err = float(np.abs(scores - ps[:, :K]).max())
     log(f"main path: recall@{K} {recall:.6f} on {Q} queries ({int((hit < K).sum())} rows short, "
         f"{bad} outside near-ties); max |score - oracle| {score_err:.3g}")
+    base.update(flat_ids=got, flat_ms=batch_s * 1e3)  # for the mesh phase
     if bad:
         raise AssertionError("main path: recall below 1.0 outside near-ties")
     col._impl.close()
@@ -759,7 +789,7 @@ def _group_by_check(col, X, grp: np.ndarray, queries: np.ndarray, label: str, *,
         raise AssertionError(f"{label} group-by: the grouping is too far from the exact oracle's")
 
 
-def phase_hnsw(workdir: Path, qset, X) -> int:
+def phase_hnsw(workdir: Path, qset, X, base: dict) -> int:
     """The HNSW path: build on the card, query at three ef, group by, check, reopen."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
@@ -827,6 +857,7 @@ def phase_hnsw(workdir: Path, qset, X) -> int:
             f"(zvec C++ reference curve {REF_CURVE[ef]}, built with knn_k=255; knn_k here is 127)")
     if recalls[500] < MIN_RECALL_EF500:
         raise AssertionError(f"hnsw: recall@10 at ef=500 is {recalls[500]:.4f} < {MIN_RECALL_EF500}")
+    base["hnsw_recall"] = recalls
     param = zt.HnswQueryParam(ef=256, done_frac=1.0)
     _profiled(f"hnsw beam batch ef=256 ({Q} queries)", lambda: engine.search(qset[0], K, None, param))
     _profile_build_batch(engine, X)
@@ -911,7 +942,7 @@ def _probe_check(engine, queries: np.ndarray, dev: torch.device) -> None:
         raise AssertionError("ivf: the CUDA probe disagrees with the CPU probe")
 
 
-def phase_ivf(workdir: Path, dev: torch.device) -> int:
+def phase_ivf(workdir: Path, dev: torch.device, base: dict) -> int:
     """The IVF path: train on the card, sweep nprobe, filter, check, reopen."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
@@ -978,6 +1009,7 @@ def phase_ivf(workdir: Path, dev: torch.device) -> int:
         recall = _recall(got, exp)
         if nprobe == PROBE_CHECK_NPROBE:
             ids16 = got
+            base["ivf_recall16"] = recall
         log(f"ivf: nprobe={nprobe} (+{engine._extra_probes}): {batch_s * 1e3:.2f} ms per 1024-query "
             f"batch, {Q / batch_s:.1f} qps (batch_query, warm twice, best of 2); recall@{K} "
             f"{recall:.4f} on {Q} queries (floor {IVF_FLOORS[nprobe]})")
@@ -1198,7 +1230,7 @@ def _routed_sweep(engine, path: Path, X: np.ndarray, queries: np.ndarray, exp: n
 
 
 def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
-    """The clustered build at 2.5M rows, picked by the size rule: build, sweep
+    """The clustered build at CL_N rows, picked by the size rule: build, sweep
     ef, check the build's pieces card against CPU, reopen."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
@@ -1818,12 +1850,271 @@ def phase_tools(workdir: Path, dev: torch.device) -> int:
     return launches
 
 
+def _shard_text(tensors) -> str:
+    return ", ".join(f"{t.device} {t.shape[0]}" for t in tensors)
+
+
+def _mesh_beam_check(engine, qs: np.ndarray, ef: int) -> None:
+    """The sharded beam on the engine's CUDA shards against the same sharded
+    search on CPU copies of every shard's tensors (a CPU mesh): ids equal,
+    scores within BEAM_RTOL, except rows whose differing ids all score within
+    BEAM_RTOL of the row's k-th score."""
+    from zvec_tpu_torch.parallel.mesh import make_mesh, sharded_hnsw_search
+
+    d = engine._dev
+    R = d["R"]
+
+    def move(v, to):  # a shard's graph dict: tensors, lists of tensors, ints
+        if torch.is_tensor(v):
+            return to(v)
+        return [move(x, to) for x in v] if isinstance(v, list) else v
+
+    def run(mesh, to):
+        shards = [{k: move(v, to) for k, v in sh.items()} for sh in d["shards"]]
+        return sharded_hnsw_search(
+            mesh, torch.from_numpy(qs), [to(c) for c in engine._codes], [to(n) for n in engine._norms],
+            [sh["l0"] for sh in shards], [sh["upper_ids"] for sh in shards],
+            [sh["upper_nbrs"] for sh in shards], [sh["upper_down"] for sh in shards],
+            [sh["entry_rows"] for sh in shards], None, min(max(10_000, int(0.1 * R)), R),
+            metric=engine._search_metric, ef=ef, topk=K, max_steps=ef + 64,
+            num_levels=[sh["num_levels"] for sh in shards], frontier=4,
+        )
+
+    cs, ci = (x.cpu() for x in run(d["mesh"], lambda t: t))
+    t0 = time.perf_counter()
+    ps, pi = run(make_mesh(MESH_SHARDS, device="cpu"), lambda t: t.cpu())
+    cpu_s = time.perf_counter() - t0
+    bad, differ, err = _check_final_at_k(cs, ci, ps, pi, rtol=BEAM_RTOL)
+    scale = max(float(ps.abs().max()), 1.0)
+    log(f"mesh hnsw: CUDA sharded beam vs the same on CPU copies of the {MESH_SHARDS} shards, {len(qs)} "
+        f"queries at ef={ef}: {differ} rows differ ({bad} outside near-ties), max |dscore| {err:.3g} "
+        f"on equal rows; CPU {cpu_s:.2f} s")
+    if bad or err > BEAM_RTOL * scale:
+        raise AssertionError("mesh hnsw: the CUDA sharded beam disagrees with the CPU's")
+
+
+def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
+    """The collections of phases 4, 6 and 7 reopened under MESH_SHARDS shards
+    (GlobalConfig.mesh_devices, as the JAX package's dryrun turns its mesh
+    on), after graft_entry.dryrun_multichip; then the sparse engines on 50,000
+    of phase 9's documents. `base` holds what the unsharded phases read.
+    Returns K1's launches on the sharded FLAT queries
+    and on the sharded HNSW build."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch import graft_entry
+    from zvec_tpu_torch.core.hnsw_sparse import SparseHnswEngine
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.ops.kmeans import lloyd
+    from zvec_tpu_torch.utils.config import GlobalConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(MESH_SHARDS)
+    log(f"mesh: graft_entry.dryrun_multichip({MESH_SHARDS}) in {time.perf_counter() - t0:.2f} s: "
+        f"mesh {out['mesh']}, shards {out['shards']}")
+    if any(not d.startswith("cuda") for v in out["shards"].values() for d in v):
+        raise AssertionError("mesh: a dry-run shard is not on the card")
+    config = GlobalConfig.instance()
+    config.mesh_devices = MESH_SHARDS
+    launches = {}
+    try:
+        # ---- FLAT: phase 4's collection ----
+        qset, X = _data()
+        col = zt.open(str(workdir / "bench1m"))
+        flat_scan_topk.launches = 0
+        first = col.batch_query("vec", qset[0], topk=K, output_fields=[])
+        iters = 8
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            col.batch_query_many("vec", [qset[i % 4] for i in range(iters)], topk=K, output_fields=[])
+            times.append((time.perf_counter() - t1) / iters)
+        launches["mesh_flat"] = flat_scan_topk.launches
+        st = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")._st
+        log(f"mesh flat: {N} x {D} in {len(st.codes)} shards ({_shard_text(st.codes)} rows); "
+            f"{min(times) * 1e3:.2f} ms per 1024-query batch (batch_query_many, {iters} blocks, best of "
+            f"2; unsharded phase 4 {base['flat_ms']:.2f} ms); K1 launches {launches['mesh_flat']}")
+        if st.mesh is None or len(st.codes) != MESH_SHARDS or not all(c.is_cuda for c in st.codes):
+            raise AssertionError("mesh flat: the codes are not in 4 shards on the card")
+        if launches["mesh_flat"] == 0:
+            raise AssertionError("mesh flat: the sharded scan never launched the flat-scan kernel")
+        got = _ids(first)
+        os_, oi = _exact_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(qset[0]).to(dev))
+        exp, ps = oi.cpu().numpy(), -os_.cpu().numpy()
+        near_tie = np.abs(ps[:, K - 1] - ps[:, K]) <= TIE_RTOL * np.abs(ps[:, K - 1])
+        hit = np.array([len(set(got[r]) & set(exp[r, :K])) for r in range(Q)])
+        other = (got != base["flat_ids"]).any(axis=1)
+        log(f"mesh flat: recall@{K} {hit.sum() / (Q * K):.6f} ({int(((hit < K) & ~near_tie).sum())} rows "
+            f"short outside near-ties); {int(other.sum())} rows differ from phase 4's ids "
+            f"({int((other & ~near_tie).sum())} outside near-ties)")
+        if ((hit < K) & ~near_tie).any() or (other & ~near_tie).any():
+            raise AssertionError("mesh flat: recall below 1.0 or other ids than phase 4 outside near-ties")
+        col._impl.close()
+        del col, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- HNSW: phase 6's collection; its graph file holds no shards ----
+        col = zt.open(str(workdir / "hnsw1m"))
+        flat_scan_topk.launches = 0
+        t1 = time.perf_counter()
+        col.create_index("vec", zt.HnswIndexParam(zt.MetricType.L2, knn_k=MESH_KNN_K))
+        t_build = time.perf_counter() - t1
+        launches["mesh_hnsw_build"] = flat_scan_topk.launches
+        engine = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
+        d = engine._dev
+        log(f"mesh hnsw: create_index(knn_k={MESH_KNN_K}) built {MESH_SHARDS} shard graphs in {t_build:.2f} s "
+            f"(shards {_shard_text(engine._codes)} rows; levels {[sh['num_levels'] for sh in d['shards']]}); "
+            f"K1 launches {launches['mesh_hnsw_build']}; graph file {engine.build_times.get('dump_aux', 0):.2f} s")
+        for i, bt in enumerate(engine.shard_build_times):
+            log(f"mesh hnsw: shard {i}: " + ", ".join(f"{k} {v:.2f} s" for k, v in bt.items()))
+        if not d.get("sharded") or not all(c.is_cuda for c in engine._codes):
+            raise AssertionError("mesh hnsw: the engine is not sharded on the card")
+        if launches["mesh_hnsw_build"] == 0:
+            raise AssertionError("mesh hnsw: the shard builds never launched the flat-scan kernel")
+        _, oi = _exact_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(qset[0]).to(dev))
+        exp = oi[:, :K].cpu().numpy()
+        ids_128 = None
+        for ef in MESH_HNSW_EFS:
+            param = zt.HnswQueryParam(ef=ef, done_frac=1.0)
+            got = _ids(col.batch_query("vec", qset[0], topk=K, output_fields=[], param=param))
+            times = []
+            for _ in range(2):
+                t1 = time.perf_counter()
+                col.batch_query_many("vec", qset, topk=K, output_fields=[], param=param)
+                times.append((time.perf_counter() - t1) / len(qset))
+            rec, ref = _recall(got, exp), base["hnsw_recall"][ef]
+            ids_128 = got if ids_128 is None else ids_128
+            log(f"mesh hnsw: ef={ef}: {min(times) * 1e3:.2f} ms per 1024-query batch (batch_query_many, "
+                f"{len(qset)} blocks, best of 2); recall@{K} {rec:.4f} (unsharded phase 6 {ref:.4f}, "
+                f"floor {ref - MESH_HNSW_SLACK:.4f})")
+            if rec < ref - MESH_HNSW_SLACK:
+                raise AssertionError(f"mesh hnsw: recall@10 at ef={ef} is {rec:.4f} < {ref - MESH_HNSW_SLACK:.4f}")
+        beam_qs = np.random.default_rng(SEED + 2).standard_normal((MESH_CHECK_Q, D)).astype(np.float32)
+        _mesh_beam_check(engine, beam_qs, BEAM_CHECK_EF)
+        col._impl.close()
+        del col, engine, d
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = flat_scan_topk.launches
+        t1 = time.perf_counter()
+        col = zt.open(str(workdir / "hnsw1m"))
+        again = _ids(col.batch_query("vec", qset[0], topk=K, output_fields=[],
+                                     param=zt.HnswQueryParam(ef=MESH_HNSW_EFS[0], done_frac=1.0)))
+        t_open = time.perf_counter() - t1
+        eng2 = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
+        loaded = int(eng2._loaded_aux.get("shards", 0)) == MESH_SHARDS and not eng2.build_times
+        col._impl.close()
+        log(f"mesh hnsw: reopened under {MESH_SHARDS} shards in {t_open:.2f} s (open + first batch): the "
+            f"sharded graph file loaded without a build ({flat_scan_topk.launches - before} K1 launches); "
+            f"{'identical' if (again == ids_128).all() else 'OTHER'} ids at ef={MESH_HNSW_EFS[0]}")
+        if not loaded or flat_scan_topk.launches != before or not (again == ids_128).all():
+            raise AssertionError("mesh hnsw: the sharded graph file did not reload as written")
+        del col, eng2, X, qset
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- IVF: phase 7's collection ----
+        X, queries, tags, price = _ivf_data()
+        calls = lloyd.calls
+        t1 = time.perf_counter()
+        col = zt.open(str(workdir / "ivf1m"))
+        param = zt.IVFQueryParam(nprobe=MESH_IVF_NPROBE)
+        got = _ids(col.batch_query("vec", queries, topk=K, output_fields=[], param=param))
+        t_open = time.perf_counter() - t1
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            col.batch_query("vec", queries, topk=K, output_fields=[], param=param)
+            times.append(time.perf_counter() - t1)
+        engine = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
+        xd = torch.from_numpy(X).to(dev)
+        _, oi = _exact_oracle(xd, torch.from_numpy(queries).to(dev))
+        rec, ref = _recall(got, oi[:, :K].cpu().numpy()), base["ivf_recall16"]
+        log(f"mesh ivf: lists in {len(engine._lists_codes)} shards ({_shard_text(engine._lists_codes)} "
+            f"virtual lists); open + first batch {t_open:.2f} s, lloyd calls {lloyd.calls - calls}; "
+            f"nprobe={MESH_IVF_NPROBE}: {min(times) * 1e3:.2f} ms per 1024-query batch; recall@{K} {rec:.4f} "
+            f"(unsharded phase 7 {ref:.4f}, floor {ref - MESH_IVF_SLACK:.4f})")
+        if engine._smesh is None or lloyd.calls != calls:
+            raise AssertionError("mesh ivf: the lists are not sharded, or k-means ran again")
+        if rec < ref - MESH_IVF_SLACK:
+            raise AssertionError(f"mesh ivf: recall@10 {rec:.4f} < {ref - MESH_IVF_SLACK:.4f}")
+        sel = np.flatnonzero((tags == 3) & (price < 0.5))
+        fs, fi = _exact_oracle(xd[torch.from_numpy(sel).to(dev)], torch.from_numpy(queries).to(dev))
+        fexp, fd = sel[fi[:, :K].cpu().numpy()], -fs.cpu().numpy()
+        near_tie = np.abs(fd[:, K - 1] - fd[:, K]) <= TIE_RTOL * np.abs(fd[:, K - 1])
+        fgot = _ids(col.batch_query("vec", queries, topk=K, filter=IVF_FILTER, output_fields=[]))
+        short = np.array([len(set(fgot[r]) & set(fexp[r])) < K for r in range(Q)])
+        log(f"mesh ivf: filter {IVF_FILTER!r}: recall@{K} {_recall(fgot, fexp):.6f} against the filtered "
+            f"oracle ({int(short.sum())} rows short, {int((short & ~near_tie).sum())} outside near-ties)")
+        if (short & ~near_tie).any():
+            raise AssertionError("mesh ivf: filtered recall@10 below 1.0 outside near-ties")
+        col._impl.close()
+        del col, engine, xd, X
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- sparse: 50,000 of phase 9's documents, its widths kept ----
+        pools = sparse_topic_model()
+        idx, val = sparse_make_rows(pools, MESH_SP_N, SP_NNZ_DOC, SP_SEED + 1)
+        dicts = sparse_rows_to_dicts(idx, val)
+        schema = zt.CollectionSchema("sparse_mesh", vectors=[
+            zt.VectorSchema("sv", zt.DataType.SPARSE_VECTOR_FP32, 0,
+                            zt.HnswIndexParam(zt.MetricType.IP, m=16, ef_construction=200))])
+        t1 = time.perf_counter()
+        col = zt.create_and_open(str(workdir / "sparse_mesh"), schema)
+        for lo in range(0, MESH_SP_N, 1024):
+            col.insert([zt.Doc(id=str(lo + i), vectors={"sv": dicts[lo + i]})
+                        for i in range(min(1024, MESH_SP_N - lo))])
+        t_insert = time.perf_counter() - t1
+        col.optimize()
+        t_build = time.perf_counter() - t1 - t_insert
+        engine = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("sv")
+        q_idx, q_val = sparse_make_rows(pools, SP_GT_Q, SP_NNZ_Q, SP_SEED + 77, head_frac=0.25)
+        qdicts = sparse_rows_to_dicts(q_idx, q_val)
+        _, gi = _sparse_oracle([(idx, val)], q_idx, q_val, dev, K)
+        lin = zt.HnswQueryParam(ef=64, is_linear=True)
+        flat_rec = _recall(_ids(col.batch_query("sv", qdicts, topk=K, output_fields=[], param=lin)), gi)
+        param = zt.HnswQueryParam(ef=MESH_SP_EF)
+        t1 = time.perf_counter()
+        beam_rec = _recall(_ids(col.batch_query("sv", qdicts, topk=K, output_fields=[], param=param)), gi)
+        t_beam = time.perf_counter() - t1
+        config.mesh_devices = 0
+        single = SparseHnswEngine(params=zt.HnswIndexParam(zt.MetricType.IP, m=16, ef_construction=200))
+        single.bind_data(lambda: dicts, lambda: 1)
+        t1 = time.perf_counter()
+        single._ensure_fresh()
+        t_single = time.perf_counter() - t1
+        _, s_ids = single.search(qdicts, K, None, param)
+        single_rec = _recall(s_ids, gi)
+        config.mesh_devices = MESH_SHARDS
+        log(f"mesh sparse: {MESH_SP_N} docs x {SP_NNZ_DOC} terms (phase 9's generator, rows cut from "
+            f"{SP_N}): insert {t_insert:.2f} s, optimize {t_build:.2f} s (shards "
+            f"{_shard_text(engine._doc_idx)} rows, exact forward pass per shard "
+            f"{engine.build_times.get('forward_knn', 0):.2f} s); sparse FLAT (is_linear) recall@{K} "
+            f"{flat_rec:.4f} (floor {SP_MIN_RECALL_FLAT}); sparse HNSW ef={MESH_SP_EF}: recall@{K} "
+            f"{beam_rec:.4f}, {t_beam * 1e3:.2f} ms for {SP_GT_Q} queries; unsharded engine on the same "
+            f"docs (built in {t_single:.2f} s) {single_rec:.4f} (floor {single_rec - MESH_SP_SLACK:.4f})")
+        if engine._smesh is None or len(engine._l0) != MESH_SHARDS or not all(t.is_cuda for t in engine._l0):
+            raise AssertionError("mesh sparse: the graph is not in 4 shards on the card")
+        if flat_rec < SP_MIN_RECALL_FLAT or beam_rec < single_rec - MESH_SP_SLACK:
+            raise AssertionError("mesh sparse: recall below its floor")
+        col._impl.close()
+        del col, engine, single
+    finally:
+        config.mesh_devices = 0
+    log(f"mesh: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return launches
+
+
 def main() -> None:
     phases = PHASES
     if len(sys.argv) > 1:
-        if len(sys.argv) != 3 or sys.argv[1] != "--phases" or not set(sys.argv[2].split(",")) <= set(PHASES):
-            raise SystemExit(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
-        phases = tuple(sys.argv[2].split(","))
+        phases = tuple(sys.argv[2].split(",")) if len(sys.argv) == 3 else ()
+        if (sys.argv[1] != "--phases" or not phases or not set(phases) <= set(PHASES)
+                or ("mesh" in phases and not set(MESH_NEEDS) <= set(phases))):
+            raise SystemExit(f"usage: chip_smoke.py [--phases {','.join(PHASES)}] "
+                             f"(mesh reopens the collections of {','.join(MESH_NEEDS)}: name them too)")
     t_run = time.perf_counter()
     mark = [t_run]
 
@@ -1838,6 +2129,7 @@ def main() -> None:
     dev = torch.device("cuda")
     case = build_case = None
     launches = {}
+    base = {}  # what the unsharded phases 4, 6 and 7 read, for the mesh phase
     if "kernel" in phases:
         case = phase_kernel_vs_plain()
         torch.cuda.empty_cache()
@@ -1851,18 +2143,18 @@ def main() -> None:
         if "flat" in phases or "hnsw" in phases:
             qset, X = _data()
             if "flat" in phases:
-                launches["flat_search"] = phase_main_path(workdir, qset, X)
+                launches["flat_search"] = phase_main_path(workdir, qset, X, base)
                 gc.collect()
                 torch.cuda.empty_cache()
                 lap("flat")
             if "hnsw" in phases:
-                launches["hnsw_build"] = phase_hnsw(workdir, qset, X)
+                launches["hnsw_build"] = phase_hnsw(workdir, qset, X, base)
                 lap("hnsw")
             del qset, X
             gc.collect()
             torch.cuda.empty_cache()
         if "ivf" in phases:
-            launches["ivf"] = phase_ivf(workdir, dev)
+            launches["ivf"] = phase_ivf(workdir, dev, base)
             gc.collect()
             torch.cuda.empty_cache()
             lap("ivf")
@@ -1883,6 +2175,11 @@ def main() -> None:
         if "tools" in phases:
             launches["tools_flat"] = phase_tools(workdir, dev)
             lap("tools")
+        if "mesh" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches.update(phase_mesh(workdir, dev, base))
+            lap("mesh")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(smi)

@@ -269,7 +269,7 @@ def test_open_jax_ivf_collection(tmp_path):
     tc._impl.close()
 
 
-def test_sparse_field_and_multi_gpu_raise(tmp_path):
+def test_sparse_field_and_multi_gpu_raise(tmp_path, monkeypatch):
     p = zvec_tpu_torch
     schema = p.CollectionSchema(
         "sparse_col",
@@ -284,8 +284,20 @@ def test_sparse_field_and_multi_gpu_raise(tmp_path):
     col = p.open(str(tmp_path / "s"))
     assert col.query(p.VectorQuery("sp", vector={5: 1.0}), topk=1)[0].id == "5"
     col._impl.close()
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        p.init(mesh_devices=2)
+    # init(mesh_devices=2) is accepted, and a collection then answers sharded
+    from zvec_tpu_torch.utils.config import GlobalConfig
+
+    monkeypatch.setattr(GlobalConfig, "_instance", None)
+    p.init(mesh_devices=2)
+    assert GlobalConfig.instance().mesh_devices == 2
+    col = p.create_and_open(str(tmp_path / "m"), schema)
+    col.insert([p.Doc(id=str(i), vectors={"sp": {i: 1.0, i + 1: 0.5}}) for i in range(600)])
+    col.optimize()
+    eng = col._impl._segments_snapshot()[0].engine_for("sp")
+    eng._ensure_fresh()
+    assert eng._smesh is not None and len(eng._doc_idx) == 2
+    assert [d.id for d in col.query(p.VectorQuery("sp", vector={513: 1.0}), topk=2)] == ["513", "512"]
+    col._impl.close()
 
 
 def test_import_leaves_jax_out():
@@ -303,7 +315,8 @@ def test_import_leaves_jax_out():
         "import zvec_tpu_torch.tools.build, zvec_tpu_torch.tools.recall, zvec_tpu_torch.tools.bench; "
         "import zvec_tpu_torch.tools.txt2vecs, zvec_tpu_torch.tools.io; "
         "import zvec_tpu_torch.examples.quickstart, zvec_tpu_torch.examples.hybrid_multivector; "
-        "import zvec_tpu_torch.examples.quantized_groupby; "
+        "import zvec_tpu_torch.examples.quantized_groupby, zvec_tpu_torch.examples.mesh_sharding; "
+        "import zvec_tpu_torch.parallel.mesh, zvec_tpu_torch.graft_entry; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zvec_tpu' or m.startswith('zvec_tpu.') or m == 'triton']; "
         "assert not bad, bad"

@@ -22,7 +22,9 @@ torch = pytest.importorskip("torch")
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402
-from zvec_tpu_torch.examples import hybrid_multivector, quantized_groupby, quickstart  # noqa: E402
+from zvec_tpu.utils.config import GlobalConfig as JConfig  # noqa: E402
+from zvec_tpu_torch.examples import hybrid_multivector, mesh_sharding, quantized_groupby, quickstart  # noqa: E402
+from zvec_tpu_torch.utils.config import GlobalConfig as TConfig  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -83,3 +85,18 @@ def test_quantized_groupby_prints_the_same_ids(tmp_path, monkeypatch, capsys):
     want = _printed(ref)
     assert got == want and _printed(out) == want
     assert len(want["group_by"]) == 3 and "OK" in out.splitlines()
+
+
+def test_mesh_sharding_prints_the_same_ids(tmp_path, monkeypatch, capsys):
+    """The reference shards over its 8 virtual CPU devices, the port over 8
+    shards on the CPU; both print the exact top-5."""
+    for cfg in (JConfig, TConfig):  # the reference example leaves its mesh on
+        monkeypatch.setattr(cfg.instance(), "mesh_devices", cfg.instance().mesh_devices)
+    ref = _reference("mesh_sharding", tmp_path, monkeypatch, capsys)
+    got = mesh_sharding.main(str(tmp_path / "port"))
+    out = capsys.readouterr().out
+    want = ast.literal_eval(re.search(r"^sharded top-5: (.*)$", ref, re.M).group(1))
+    assert len(want) == 5 and got == want
+    assert ast.literal_eval(re.search(r"^sharded top-5: (.*)$", out, re.M).group(1)) == want
+    assert "code table: 8 shards of 3072 rows on ['cpu']" in out
+    assert TConfig.instance().mesh_devices == 0

@@ -29,8 +29,9 @@ local sentence-transformers providers). `zvec_tpu_torch.tools` holds the
 command-line build, recall and bench tools; `zvec_tpu_torch.examples` holds
 runnable examples.
 
-Still refused: `init(mesh_devices > 1)` (multi-GPU sharding) raises
-`NotImplementedError`.
+`init(mesh_devices=N)` shards sealed segments over N corpus shards, placed
+round-robin over the cards there are (`parallel/mesh.py`): one process, no
+launcher; every engine searches each shard and merges the per-shard top-k.
 """
 
 from . import model as model

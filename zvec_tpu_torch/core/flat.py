@@ -3,7 +3,10 @@
 Port of `zvec_tpu/core/flat.py`. Codes are padded and moved to the device
 once per data version; every query batch then runs either the fused CUDA scan
 (`ops/flat_scan.py`, large corpora and small k) or the blockwise torch scan
-(`ops/topk.py`).
+(`ops/topk.py`). Under a collection mesh (`init(mesh_devices=N)`) the padded
+rows split into N contiguous shards, one per mesh device, and a batch runs
+that choice on every shard before the per-shard top-k merge
+(`parallel/mesh.py::sharded_flat_search`).
 
 Quantization (reference converter/reformer pairs, `src/core/quantizer/`):
 `quantize_type` on the index params stores fp16 or int8/int4 codes on the
@@ -15,7 +18,7 @@ codes are L2-normalized before quantization (`cosine_converter.cc:383-399`);
 from __future__ import annotations
 
 import hashlib
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +32,7 @@ from ..typing.enum import IndexType, MetricType, QuantizeType
 from .interface import VectorIndexEngine, register_engine
 from .refiner import refine
 
-__all__ = ["FlatEngine"]
+__all__ = ["FlatEngine", "kernel_takes"]
 
 # Row padding granularity; the fused scan needs a multiple of 1024 rows.
 _ROW_ALIGN = 1024
@@ -38,17 +41,29 @@ _BIG_N = 100_000  # corpus size from which the fused kernel takes the scan
 _BLOCK_SIZE = 131072
 
 
+def kernel_takes(codes: torch.Tensor, dequant, n: int, k: int) -> bool:
+    """The rule of the fused CUDA scan: codes on the card, fp32 / fp16 codes
+    or int8 / nibble-packed int4 codes with the in-kernel affine-dequant
+    epilogue, rows a multiple of 1024, a large corpus (n rows), small k
+    (group-max extraction)."""
+    dtype_ok = (dequant is None and codes.dtype in (torch.float32, torch.float16)) or (
+        dequant is not None and codes.dtype == torch.int8
+    )
+    return dtype_ok and codes.is_cuda and codes.shape[0] % 1024 == 0 and n >= _BIG_N and k <= 32
+
+
 class _State(NamedTuple):
     """One immutable device snapshot; swapped atomically by _rebuild so
     concurrent readers racing a writer always see a consistent
     (codes, norms, n, n_pad) quadruple (query-during-append safety)."""
 
-    codes: Optional[torch.Tensor]  # (n_pad, D) device, storage dtype
-    norms: Optional[torch.Tensor]  # (n_pad,) device f32 (dequantized sq norms)
+    codes: Optional[torch.Tensor]  # (n_pad, D) device, storage dtype; a list of shards under a mesh
+    norms: Optional[torch.Tensor]  # (n_pad,) device f32 (dequantized sq norms); per shard under a mesh
     n: int
     n_pad: int
     dequant: Optional[tuple]  # (scale, bias) float32 values as Python floats
     int4_packed: bool
+    mesh: Optional[Any] = None  # the collection mesh the rows are sharded over
 
 
 _EMPTY = _State(None, None, 0, 0, None, False)
@@ -81,13 +96,20 @@ class FlatEngine(VectorIndexEngine):
         self._mask_cache: dict = {}
 
     def _device_mask(self, st: _State, full_mask: np.ndarray, as_int8: bool):
+        """The (n_pad,) mask on the device (one tensor per shard under a
+        mesh), cached by its contents."""
         digest = hashlib.blake2b(full_mask.tobytes(), digest_size=16).digest()
         key = (id(st.codes), digest, as_int8)
         hit = self._mask_cache.get(key)
         if hit is not None:
             return hit
         host = full_mask.astype(np.int8) if as_int8 else full_mask
-        dev = torch.from_numpy(host).to(st.codes.device)
+        if st.mesh is not None:
+            from ..parallel.mesh import shard_rows
+
+            dev = shard_rows(host, st.mesh)
+        else:
+            dev = torch.from_numpy(host).to(st.codes.device)
         if len(self._mask_cache) >= 8:
             self._mask_cache.clear()
         self._mask_cache[key] = dev
@@ -126,20 +148,12 @@ class FlatEngine(VectorIndexEngine):
         return data, None
 
     def _use_kernel(self, st: _State, k: int) -> bool:
-        """Fused CUDA scan: codes on the card, fp32/fp16 codes or int8 /
-        nibble-packed int4 codes with the in-kernel affine-dequant epilogue,
-        large corpus, small k (group-max extraction)."""
-        dtype_ok = st.codes is not None and (
-            (st.dequant is None and st.codes.dtype in (torch.float32, torch.float16))
-            or (st.dequant is not None and st.codes.dtype == torch.int8)
-        )
-        return (
-            dtype_ok
-            and st.codes.is_cuda
-            and st.n_pad % 1024 == 0
-            and st.n >= _BIG_N
-            and k <= 32
-        )
+        return st.codes is not None and kernel_takes(st.codes, st.dequant, st.n, k)
+
+    def _mesh(self):
+        from ..parallel.mesh import collection_mesh
+
+        return collection_mesh()
 
     def _rebuild(self, data: np.ndarray) -> None:
         n = data.shape[0]
@@ -147,7 +161,10 @@ class FlatEngine(VectorIndexEngine):
             self._st = _EMPTY
             return
         codes, dequant = self._prepare(np.asarray(data))
-        n_pad = round_up(n, _ROW_ALIGN_BIG if n >= _BIG_N else _ROW_ALIGN)
+        mesh = self._mesh()
+        align = _ROW_ALIGN_BIG if n >= _BIG_N else _ROW_ALIGN
+        # every shard holds a whole number of scan tiles
+        n_pad = round_up(n, align * (mesh.shape["corpus"] if mesh is not None else 1))
         padded = np.zeros((n_pad, codes.shape[1]), dtype=codes.dtype)
         padded[:n] = codes
         deq = decode(padded, self._qparams)
@@ -159,11 +176,18 @@ class FlatEngine(VectorIndexEngine):
             from ..ops.quantize import pack_int4
 
             padded = pack_int4(padded)
-        dev = device()
         # fp16 codes stay true fp16 on the card (Hopper scores fp16 natively)
-        dev_codes = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
-        dev_norms = torch.from_numpy(norms.astype(np.float32)).to(dev)
-        self._st = _State(dev_codes, dev_norms, n, n_pad, dequant, int4_packed)
+        if mesh is not None:
+            # corpus-sharded residency: each mesh device holds its shard's rows
+            from ..parallel.mesh import shard_rows
+
+            dev_codes = shard_rows(padded, mesh)
+            dev_norms = shard_rows(norms.astype(np.float32), mesh)
+        else:
+            dev = device()
+            dev_codes = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
+            dev_norms = torch.from_numpy(norms.astype(np.float32)).to(dev)
+        self._st = _State(dev_codes, dev_norms, n, n_pad, dequant, int4_packed, mesh)
 
     def _search_impl(
         self,
@@ -224,7 +248,6 @@ class FlatEngine(VectorIndexEngine):
         nq_pad = _bucket_queries(nq)
         q = np.zeros((nq_pad, queries.shape[1]), dtype=np.float32)
         q[:nq] = queries
-        q_dev = torch.from_numpy(q).to(st.codes.device)
 
         full_mask = np.zeros(st.n_pad, dtype=bool)
         if mask is not None:
@@ -234,6 +257,22 @@ class FlatEngine(VectorIndexEngine):
             full_mask[: st.n] = True
 
         k = min(scan_k, st.n)
+        if st.mesh is not None:
+            from ..parallel.mesh import sharded_flat_search
+
+            sims, idx = sharded_flat_search(
+                st.mesh,
+                torch.from_numpy(q),
+                st.codes,
+                scan_metric,
+                k,
+                mask=self._device_mask(st, full_mask, as_int8=False),
+                x_sq_norms=st.norms,
+                dequant=st.dequant,
+                int4_packed=st.int4_packed,
+            )
+            return ("scan", st, sims, idx, nq, topk, use_refiner, orig_queries)
+        q_dev = torch.from_numpy(q).to(st.codes.device)
         if self._use_kernel(st, k):
             from ..ops.flat_scan import flat_scan_topk
 

@@ -33,7 +33,17 @@ beam walks a reduced-precision copy of the codes and re-ranks its working set
 against the fp32 codes on the device. The route tier is rebuilt from the codes
 whenever the engine is, and is not part of the graph file.
 
-Left out against the JAX engine: the mesh-sharded graphs, the legacy
+Under a collection mesh (`init(mesh_devices=S)`) a layer of at least
+`brute_force_threshold` rows splits into S contiguous row ranges of R =
+round_up(ceil(n / S), 128) rows; each range gets its own graph, built as a
+whole layer would be (`_rebuild_sharded`), its codes, norms and graph
+tensors live on its mesh device, and a query runs the beam on every shard
+before the per-shard top-k merge (`parallel/mesh.py::sharded_hnsw_search`). Each shard keeps its
+own level count (the JAX engine pads them to one with pass-through levels;
+the ids are the same). The graph file then holds one graph per shard
+(`shards`, `s{i}_*` keys, as the JAX engine writes it).
+
+Left out against the JAX engine: the legacy
 insertion build (`ZVEC_HNSW_BUILD=insert`; the JAX engine's own fails on a
 fresh engine, `tests/test_torch_route.py` pins it), bf16 search codes, bf16
 build codes on the exact build (its scan kernel takes fp32), the TPU lane
@@ -172,9 +182,13 @@ class HnswEngine(VectorIndexEngine):
         # precision tier the beam walks, on the device; None = off
         self._route = None
         self._dev: Optional[Dict[str, Any]] = None  # device graph tensors
+        self._shard_graphs: Optional[List[Optional[_Graph]]] = None  # per shard, under a mesh
         self._loaded_aux: Optional[Dict[str, np.ndarray]] = None
         # seconds of the last graph build by phase, and of the last dump_aux
+        # (under a mesh each phase summed over the shards, and every shard's
+        # own in shard_build_times)
         self.build_times: Dict[str, float] = {}
+        self.shard_build_times: List[Dict[str, float]] = []
         # what the last L0 build ran: clustered or not, its code dtype and, for a
         # clustered build, K, mp, kc, dropped members and a sample of buckets
         self.build_info: Dict[str, Any] = {}
@@ -207,6 +221,11 @@ class HnswEngine(VectorIndexEngine):
         )
         if self._mips:
             data, self._mips_max_norm2 = mips_augment(data)
+        mesh = self._mesh()
+        if mesh is not None and self._n >= self.brute_force_threshold:
+            self._rebuild_sharded(data, mesh)
+            return
+        self._shard_graphs = None
         n_pad = round_up(self._n, _ROW_ALIGN)
 
         # graph first: its build buffers are freed before the search codes land
@@ -229,6 +248,56 @@ class HnswEngine(VectorIndexEngine):
         if self._route is not None:
             self.build_times.pop("route", None)  # a rebuild on a loaded graph keeps the rest
             _lap(self.build_times, "route", t0, dev)
+
+    def _mesh(self):
+        from ..parallel.mesh import collection_mesh
+
+        return collection_mesh()
+
+    def _rebuild_sharded(self, data: np.ndarray, mesh) -> None:
+        """Mesh mode: S independent graphs over the contiguous global row
+        ranges [s*R, (s+1)*R), each built by `_build_graph_knn` on its rows
+        (or read from a graph file written under S shards); codes, norms and
+        graph tensors of shard s on its mesh device. `data` is already
+        metric-transformed (MIPS-augmented / hamming +-1)."""
+        from ..parallel.mesh import shard_rows
+
+        S = mesh.shape["corpus"]
+        R = round_up(-(-self._n // S), _ROW_ALIGN)
+        n_pad = R * S
+        aux = self._loaded_aux
+        graphs: List[Optional[_Graph]] = []
+        if aux is not None and int(aux.get("n", -1)) == self._n and int(aux.get("shards", 0)) == S:
+            graphs = _shard_graphs_from_aux(aux, self.m, S)
+            self.build_times, self.shard_build_times = {}, []
+        if not graphs:
+            times: Dict[str, float] = {}
+            self.shard_build_times = []
+            for s in range(S):
+                chunk = data[s * R : min((s + 1) * R, self._n)]
+                graphs.append(self._build_graph_knn(chunk) if len(chunk) else None)
+                self.shard_build_times.append(dict(self.build_times) if len(chunk) else {})
+                for key, secs in self.shard_build_times[-1].items():
+                    times[key] = times.get(key, 0.0) + secs
+            self.build_times = times
+        self._shard_graphs = graphs
+        self._graph = None
+        codes_host, norms_host = self._storage_codes_host(data, n_pad)
+        self._codes = shard_rows(codes_host, mesh)
+        self._norms = shard_rows(norms_host.astype(np.float32), mesh)
+        self._dev = {
+            "sharded": True,
+            "mesh": mesh,
+            "R": R,
+            "shards": [
+                None if g is None else self._device_graph(g, dev, rows=R)
+                for g, dev in zip(graphs, mesh.devices)
+            ],
+        }
+        if n_pad > self._n:
+            # the validity mask keeps padding rows out of unfiltered results:
+            # a shard's padding rows hold zero codes with finite scores
+            self._dev["valid"] = shard_rows(np.arange(n_pad) < self._n, mesh)
 
     def _build_route(self, codes_host: np.ndarray):
         """The reduced-precision routing tier of an fp32 index: the beam's
@@ -314,7 +383,12 @@ class HnswEngine(VectorIndexEngine):
             self._int4_packed = True
         return padded_c, norms
 
-    def _device_graph(self, g: _Graph, dev) -> Dict[str, Any]:
+    def _device_graph(self, g: _Graph, dev, rows: int = 0) -> Dict[str, Any]:
+        """The graph's tensors on `dev`; L0 padded with -1 rows to `rows`."""
+        l0 = g.l0
+        if rows > l0.shape[0]:
+            l0 = np.full((rows, l0.shape[1]), -1, np.int32)
+            l0[: g.l0.shape[0]] = g.l0
         upper_ids, upper_nbrs, upper_down = [], [], []
         for lvl, ids in enumerate(g.upper_ids):
             if lvl == 0:
@@ -330,7 +404,7 @@ class HnswEngine(VectorIndexEngine):
             g.row_of[lvl].get(int(g.entry_point), 0) for lvl in range(len(g.upper_ids))
         ]
         return {
-            "l0": _to_dev(g.l0, dev, torch.int32),
+            "l0": _to_dev(l0, dev, torch.int32),
             "upper_ids": upper_ids,
             "upper_nbrs": upper_nbrs,
             "upper_down": upper_down,
@@ -739,14 +813,22 @@ class HnswEngine(VectorIndexEngine):
         nq_pad = bucket_queries(nq)
         qpad = np.zeros((nq_pad, queries.shape[1]), np.float32)
         qpad[:nq] = queries
-        dev = self._codes.device
-        q_dev = _to_dev(qpad, dev)
         k = min(topk, self._n)
+        sharded = self._dev is not None and self._dev.get("sharded")
+        if sharded:
+            n_pad = self._dev["R"] * self._dev["mesh"].shape["corpus"]
+        else:
+            n_pad = self._codes.shape[0]
+            dev = self._codes.device
+            q_dev = _to_dev(qpad, dev)
+
+        def full_mask_host():
+            fm = np.zeros(n_pad, dtype=bool)
+            fm[: self._n] = True if mask is None else mask
+            return fm
 
         def full_mask():
-            fm = np.zeros(self._codes.shape[0], dtype=bool)
-            fm[: self._n] = True if mask is None else mask
-            return _to_dev(fm, dev)
+            return _to_dev(full_mask_host(), dev)
 
         def exact_scan(dmask):
             return blockwise_topk_search(
@@ -756,10 +838,27 @@ class HnswEngine(VectorIndexEngine):
             )
 
         if is_linear or self._n < self.brute_force_threshold:
-            dev_out = exact_scan(full_mask())
+            if sharded:
+                dev_out = self._sharded_flat(qpad, full_mask_host(), k)
+            else:
+                dev_out = exact_scan(full_mask())
 
             def collect():
                 return dev_out[0].cpu().numpy(), dev_out[1].cpu().numpy()
+        elif sharded:
+            dev_out = self._search_sharded(qpad, k, mask, ef, param)
+
+            def collect():
+                sims = dev_out[0][:nq].cpu().numpy()
+                idx = dev_out[1][:nq].cpu().numpy()
+                if mask is not None:
+                    # the single-device path's filtered-beam safety net
+                    def rescan():
+                        s, i = self._sharded_flat(qpad, full_mask_host(), k)
+                        return s.cpu().numpy(), i.cpu().numpy()
+
+                    sims, idx = rescan_deficient(sims, idx, k, mask, rescan)
+                return sims, idx
         else:
             knobs = self._query_knobs(param)
             budget = self._scan_budget(knobs)
@@ -864,6 +963,7 @@ class HnswEngine(VectorIndexEngine):
             or self._hamming
             or self.quantize != QuantizeType.UNDEFINED
             or self._route is not None
+            or (self._dev is not None and self._dev.get("sharded"))
             or self._n < self.brute_force_threshold
             or (isinstance(param, QueryParam) and param.is_linear)
         ):
@@ -925,6 +1025,7 @@ class HnswEngine(VectorIndexEngine):
             or self._hamming
             or self.quantize != QuantizeType.UNDEFINED
             or self._route is not None
+            or (self._dev is not None and self._dev.get("sharded"))
             or self._n < self.brute_force_threshold
             or (isinstance(param, QueryParam) and param.is_linear)
         ):
@@ -981,6 +1082,61 @@ class HnswEngine(VectorIndexEngine):
             self._group_dev_cache = (key, col)
         return col
 
+    # ------------- mesh-sharded search -------------
+    def _sharded_flat(self, qpad: np.ndarray, full_mask: np.ndarray, k: int):
+        """Exact scan over every shard, then the merge (the linear and
+        filtered-rescan paths under a mesh)."""
+        from ..parallel.mesh import shard_rows, sharded_flat_search
+
+        mesh = self._dev["mesh"]
+        return sharded_flat_search(
+            mesh, torch.from_numpy(qpad), self._codes, self._search_metric, k,
+            mask=shard_rows(full_mask, mesh), x_sq_norms=self._norms,
+            dequant=self._dequant, int4_packed=self._int4_packed,
+        )
+
+    def _search_sharded(self, qpad: np.ndarray, k: int, mask, ef: int, param=None):
+        """The beam on every shard's graph, then the merge. The budget and
+        the visited set are per shard (R rows); the beam runs to the end for
+        every query of the batch (done_frac 1.0), as the JAX engine's
+        sharded search does."""
+        from ..parallel.mesh import shard_rows, sharded_hnsw_search
+
+        d = self._dev
+        mesh, R, shards = d["mesh"], d["R"], d["shards"]
+        knobs = self._query_knobs(param)
+        dmask = d.get("valid")
+        if mask is not None:
+            fm = np.zeros(R * mesh.shape["corpus"], dtype=bool)
+            fm[: self._n] = mask
+            dmask = shard_rows(fm, mesh)
+
+        def per_shard(key):
+            return [None if sh is None else sh[key] for sh in shards]
+
+        return sharded_hnsw_search(
+            mesh,
+            torch.from_numpy(qpad),
+            [None if sh is None else c for sh, c in zip(shards, self._codes)],
+            self._norms,
+            per_shard("l0"),
+            per_shard("upper_ids"),
+            per_shard("upper_nbrs"),
+            per_shard("upper_down"),
+            per_shard("entry_rows"),
+            dmask,
+            min(max(_MIN_SCAN_LIMIT, int(knobs["scan_ratio"] * R)), R),
+            self._dequant,
+            metric=self._search_metric,
+            ef=ef,
+            topk=k,
+            max_steps=ef + knobs["steps_slack"],
+            num_levels=[0 if sh is None else sh["num_levels"] for sh in shards],
+            frontier=knobs["frontier"],
+            int4_packed=self._int4_packed,
+            visited_bits=knobs["visited_bits"] or (0 if R <= (1 << 21) else 21),
+        )
+
     def _scan_budget(self, knobs) -> int:
         return min(max(_MIN_SCAN_LIMIT, int(knobs["scan_ratio"] * self._n)), self._n)
 
@@ -1009,25 +1165,32 @@ class HnswEngine(VectorIndexEngine):
     # ------------- persistence -------------
     def dump_aux(self, directory: str, prefix: str) -> Dict[str, Any]:
         g = self._graph
-        if g is None:
+        if g is None and self._shard_graphs is None:
             self._ensure_fresh()
             g = self._graph
         t0 = time.perf_counter()
         fname = f"hnsw_{prefix}.npz"
-        payload = {
-            "n": np.int64(self._n),
-            "m": np.int64(self.m),
-            "levels": g.levels,
-            "l0": g.l0,
-            "entry_point": np.int64(g.entry_point),
-            "max_level": np.int64(g.max_level),
-        }
-        for lvl in range(len(g.upper_ids)):
-            payload[f"upper_ids_{lvl}"] = g.upper_ids[lvl]
-            payload[f"upper_nbrs_{lvl}"] = g.upper_nbrs[lvl]
         # stored, not deflated: zlib on the host took a third of optimize
         # (63-83 s of the graph at 2.5M rows); the keys are the JAX engine's
         # and np.load reads either form, so both packages open the file
+        if self._shard_graphs is not None:
+            # mesh mode: one graph per shard, keys prefixed s{i}_
+            payload = {
+                "n": np.int64(self._n),
+                "m": np.int64(self.m),
+                "shards": np.int64(len(self._shard_graphs)),
+            }
+            for si, sg in enumerate(self._shard_graphs):
+                if sg is not None:
+                    payload.update(_graph_payload(sg, f"s{si}_"))
+            np.savez(os.path.join(directory, fname), **payload)
+            self.build_times["dump_aux"] = time.perf_counter() - t0
+            return {"file": fname, "type": "hnsw", "m": self.m, "shards": len(self._shard_graphs)}
+        payload = {
+            "n": np.int64(self._n),
+            "m": np.int64(self.m),
+            **_graph_payload(g, ""),
+        }
         np.savez(os.path.join(directory, fname), **payload)
         self.build_times["dump_aux"] = time.perf_counter() - t0
         return {"file": fname, "type": "hnsw", "m": self.m}
@@ -1037,6 +1200,38 @@ class HnswEngine(VectorIndexEngine):
         if not os.path.exists(path):
             return
         self._loaded_aux = dict(np.load(path))
+
+
+def _graph_payload(g: _Graph, prefix: str) -> Dict[str, np.ndarray]:
+    """The graph file's keys of one graph (`prefix` names its shard)."""
+    payload = {
+        prefix + "levels": g.levels,
+        prefix + "l0": g.l0,
+        prefix + "entry_point": np.int64(g.entry_point),
+        prefix + "max_level": np.int64(g.max_level),
+    }
+    for lvl in range(len(g.upper_ids)):
+        payload[f"{prefix}upper_ids_{lvl}"] = g.upper_ids[lvl]
+        payload[f"{prefix}upper_nbrs_{lvl}"] = g.upper_nbrs[lvl]
+    return payload
+
+
+def _shard_graphs_from_aux(
+    aux: Dict[str, np.ndarray], m: int, shards: int
+) -> List[Optional[_Graph]]:
+    """The per-shard graphs of a sharded graph file (keys s{i}_*); a shard
+    without keys was empty."""
+    out: List[Optional[_Graph]] = []
+    for si in range(shards):
+        p = f"s{si}_"
+        if p + "l0" not in aux:
+            out.append(None)
+            continue
+        sub = {k[len(p):]: v for k, v in aux.items() if k.startswith(p)}
+        sub["n"] = sub["l0"].shape[0]
+        sub["m"] = aux.get("m", m)
+        out.append(_graph_from_aux(sub, m))
+    return out
 
 
 def _graph_from_aux(aux: Dict[str, np.ndarray], m: int) -> _Graph:

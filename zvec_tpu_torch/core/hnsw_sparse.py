@@ -16,11 +16,16 @@ with no matrix product in it) gives way to the clustered signature build
 (`_build_graph_clustered`). `build_times` holds the seconds of the last build
 by phase, `build_info` what it ran.
 
-Left out against the JAX engine: the mesh-sharded graph (a graph file written
-from a sharded layout is rebuilt, as the JAX engine rebuilds a file of another
-layout), the environment overrides of the size rule (`_force_clustered` is the
-test hook) and the fetch-one-behind pipelining of the rescoring (the results
-stay on the card and are copied once).
+Under a collection mesh (`init(mesh_devices=S)`) every shard of the sparse
+FLAT engine's rows owns a graph over its own row range, built by the exact
+forward pass over that range (`_build_graph_range`) with 32 entry rows drawn
+per shard; a query runs the beam on every shard before the per-shard top-k
+merge (`parallel/mesh.py::sharded_sparse_beam`). A graph file written under
+another shard count (or none) is rebuilt, as the JAX engine does.
+
+Left out against the JAX engine: the environment overrides of the size rule
+(`_force_clustered` is the test hook) and the fetch-one-behind pipelining of
+the rescoring (the results stay on the card and are copied once).
 """
 
 from __future__ import annotations
@@ -99,6 +104,7 @@ class SparseHnswEngine(SparseFlatEngine):
         self._l0: Optional[torch.Tensor] = None  # (n_pad, m0) int32 on the device
         self._entries: Optional[torch.Tensor] = None  # (E,) probe rows
         self._aux_l0: Optional[np.ndarray] = None  # the host adjacency dump_aux writes
+        self._aux_entries: Optional[np.ndarray] = None  # per-shard entry rows, under a mesh
         self._entry_hint: Optional[np.ndarray] = None  # medoids of a clustered build
         self._loaded_aux: Optional[Dict[str, np.ndarray]] = None
         self._force_clustered = False  # take the clustered build below the size rule
@@ -116,6 +122,10 @@ class SparseHnswEngine(SparseFlatEngine):
         super()._rebuild(rows)
         if self._n < _BRUTE_FORCE_THRESHOLD:
             self._l0 = None
+            return
+        if self._smesh is not None:
+            _lap(self.build_times, "pad_rows", t0)
+            self._rebuild_sharded_graph()
             return
         dev = self._doc_idx.device
         _lap(self.build_times, "pad_rows", t0, dev)
@@ -139,6 +149,60 @@ class SparseHnswEngine(SparseFlatEngine):
             entries = rng.choice(self._n, min(_ENTRY_PROBES, self._n), replace=False).astype(np.int32)
         self._entries = _to_dev(entries, dev)
         self._aux_l0 = l0
+
+    def _rebuild_sharded_graph(self) -> None:
+        """Mesh mode: every shard owns an independent graph over its
+        contiguous global row range (the dense engine's recipe); neighbour
+        ids and the 32 entry rows of each shard are LOCAL to it. The entry
+        draws are the JAX engine's, draw for draw (`0xBEEF + n`)."""
+        from ..parallel.mesh import shard_rows
+
+        mesh = self._smesh
+        s_count = mesh.shape["corpus"]
+        n_pad = self._n_pad
+        R = n_pad // s_count
+        m0 = 2 * self.m
+        aux = self._loaded_aux
+        if aux is not None and int(aux["n"]) == self._n and int(aux.get("shards", 0)) == s_count:
+            pl0, entries = aux["l0"], aux["entries"]
+        else:
+            t0 = time.perf_counter()
+            self.build_info = {"clustered": False}
+            pl0 = np.full((n_pad, m0), -1, dtype=np.int32)
+            entries = np.zeros(s_count * _ENTRY_PROBES, dtype=np.int32)
+            rng = np.random.default_rng(0xBEEF + self._n)
+            for s in range(s_count):
+                cnt = min((s + 1) * R, self._n) - s * R
+                if cnt <= 0:
+                    continue  # an empty shard: pad rows only (the mask keeps it out)
+                pl0[s * R : s * R + cnt] = self._build_graph_range(s, cnt, m0)
+                pick = rng.choice(cnt, min(_ENTRY_PROBES, cnt), replace=False).astype(np.int32)
+                entries[s * _ENTRY_PROBES : (s + 1) * _ENTRY_PROBES] = np.resize(pick, _ENTRY_PROBES)
+            _lap(self.build_times, "forward_knn", t0)
+        self._l0 = shard_rows(pl0, mesh)
+        self._entries = shard_rows(entries, mesh)
+        self._aux_l0 = pl0
+        self._aux_entries = entries
+
+    def _build_graph_range(self, s: int, cnt: int, m0: int) -> np.ndarray:
+        """The kNN graph of shard s's first `cnt` rows: forward exact
+        top-(m0+1) over that shard's rows, then the reverse merge on the
+        host. Returns (cnt, m0) LOCAL adjacency."""
+        doc_idx, doc_val = self._doc_idx[s], self._doc_val[s]
+        dev = doc_idx.device
+        k = min(m0 + 1, cnt)
+        dmask = torch.arange(doc_idx.shape[0], device=dev) < cnt
+        fwd_s, fwd_i = [], []
+        for lo in range(0, cnt, _FORWARD_BATCH):
+            hi = min(lo + _FORWARD_BATCH, cnt)
+            sims, cand = sparse_ip_topk(
+                doc_idx[lo:hi], doc_val[lo:hi], doc_idx, doc_val, dmask, topk=k, vocab=self._vocab,
+            )
+            fwd_s.append(sims)
+            fwd_i.append(cand.int())
+        fwd_i = torch.cat(fwd_i).cpu().numpy()
+        fwd_s = torch.cat(fwd_s).cpu().numpy()
+        return _reverse_merge_l0(fwd_i, fwd_s, cnt, m0)
 
     def _build_graph(self) -> np.ndarray:
         """Batched kNN-graph build: forward exact top-(m0+1) per node (the
@@ -344,24 +408,45 @@ class SparseHnswEngine(SparseFlatEngine):
         ef = getattr(param, "ef", 300) if param is not None else 300
         ef = max(ef, topk)
         q_idx, q_val = self._queries_from_rows(queries)
-        dev = self._doc_idx.device
         dmask = self._device_mask(mask)
+        dev = None if self._smesh is not None else self._doc_idx.device
         k = min(topk, self._n)
-        sims, idx = hnsw_sparse_search(
-            torch.from_numpy(q_idx).to(dev),
-            torch.from_numpy(q_val).to(dev),
-            self._doc_idx,
-            self._doc_val,
-            self._l0,
-            self._entries,
-            dmask,
-            min(max(10000, int(0.1 * self._n)), self._n),
-            ef=ef,
-            topk=k,
-            max_steps=ef + 64,
-            vocab=self._vocab,
-            frontier=4,
-        )
+        if self._smesh is not None:
+            from ..parallel.mesh import sharded_sparse_beam
+
+            R = self._n_pad // self._smesh.shape["corpus"]
+            sims, idx = sharded_sparse_beam(
+                self._smesh,
+                torch.from_numpy(q_idx),
+                torch.from_numpy(q_val),
+                self._doc_idx,
+                self._doc_val,
+                self._l0,
+                self._entries,
+                dmask,
+                min(max(10000, int(0.1 * R)), R),  # per shard
+                ef=ef,
+                topk=k,
+                max_steps=ef + 64,
+                vocab=self._vocab,
+                frontier=4,
+            )
+        else:
+            sims, idx = hnsw_sparse_search(
+                torch.from_numpy(q_idx).to(dev),
+                torch.from_numpy(q_val).to(dev),
+                self._doc_idx,
+                self._doc_val,
+                self._l0,
+                self._entries,
+                dmask,
+                min(max(10000, int(0.1 * self._n)), self._n),
+                ef=ef,
+                topk=k,
+                max_steps=ef + 64,
+                vocab=self._vocab,
+                frontier=4,
+            )
         sims = sims[:nq].cpu().numpy()
         idx = idx[:nq].cpu().numpy()
         if mask is not None:
@@ -386,7 +471,12 @@ class SparseHnswEngine(SparseFlatEngine):
         t0 = time.perf_counter()
         fname = f"hnsw_sparse_{prefix}.npz"
         payload = {"n": np.int64(self._n), "l0": self._aux_l0}
-        if self._entry_hint is not None and len(self._entry_hint):
+        if self._smesh is not None:
+            # sharded layout: l0 holds per-shard LOCAL ids over the padded
+            # rows; a reopen under another shard count rebuilds instead
+            payload["shards"] = np.int64(self._smesh.shape["corpus"])
+            payload["entries"] = self._aux_entries
+        elif self._entry_hint is not None and len(self._entry_hint):
             # clustered-build medoid entries must survive reopen: random
             # re-probes on a topic-clustered graph lose whole components
             payload["entries"] = np.asarray(self._entry_hint, np.int32)

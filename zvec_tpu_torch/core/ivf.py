@@ -15,9 +15,14 @@ centroids, the row -> list assignment with SOAR secondaries, the quantizer)
 is written to `ivf_{field}.npz` with the JAX package's keys, so an index
 trained by either package reopens in the other without retraining.
 
-Left out against the JAX engine: the mesh-sharded lists (`init(mesh_devices
-> 1)` raises), and the 512-query probe blocks above 3 GB of lists, a
-workaround for 16 GB of device memory.
+Under a collection mesh (`init(mesh_devices=S)`, at least 1,000 rows) the
+virtual lists are padded to a multiple of S with dummy lists (masked out of
+the centroid top-k by `cent_valid`) and split into S contiguous shards, one
+per mesh device; every shard probes its own nearest lists and the per-shard
+top-k merge (`parallel/mesh.py::sharded_ivf_probe`).
+
+Left out against the JAX engine: the 512-query probe blocks above 3 GB of
+lists, a workaround for 16 GB of device memory.
 """
 
 from __future__ import annotations
@@ -176,6 +181,8 @@ class IvfEngine(VectorIndexEngine):
         self._lists_norms: Optional[torch.Tensor] = None
         self._lists_ids: Optional[torch.Tensor] = None
         self._flat_ids: Optional[np.ndarray] = None  # host slot -> row map
+        self._cent_valid = None  # per shard (KV / S,) bool under a mesh
+        self._smesh = None  # the collection mesh when the lists are sharded
         self._int4_packed = False
         self._extra_probes = 0
         self._loaded_aux = None
@@ -368,39 +375,87 @@ class IvfEngine(VectorIndexEngine):
                 self._extra_probes,
             )
 
-        dev = device()
-        self._centroids = torch.from_numpy(v_centroids).to(dev)
-        self._lists_codes = torch.from_numpy(lists_codes).to(dev)
-        self._lists_norms = torch.from_numpy(lists_norms).to(dev)
-        self._lists_ids = torch.from_numpy(lists_ids).to(dev)
         self._dequant = (
             (float(np.float32(self._qparams.scale)), float(np.float32(self._qparams.bias)))
             if self._qparams is not None
             else None
         )
+        mesh = self._mesh()
+        self._smesh = mesh if (mesh is not None and self._n >= _BRUTE_FORCE_THRESHOLD) else None
+        if self._smesh is not None:
+            # the virtual lists split over the shards; dummy lists pad KV to
+            # a multiple of S and never win the centroid top-k
+            from ..parallel.mesh import shard_rows
+
+            s_count = self._smesh.shape["corpus"]
+            padn = -(-kv // s_count) * s_count - kv
+            if padn:
+                v_centroids = np.pad(v_centroids, ((0, padn), (0, 0)))
+                lists_codes = np.pad(lists_codes, ((0, padn), (0, 0), (0, 0)))
+                lists_norms = np.pad(lists_norms, ((0, padn), (0, 0)))
+                lists_ids = np.pad(lists_ids, ((0, padn), (0, 0)), constant_values=-1)
+            cent_valid = np.zeros(kv + padn, dtype=bool)
+            cent_valid[:kv] = True
+            # the slot -> row map over the padded list buffer
+            self._flat_ids = lists_ids.reshape(-1).copy()
+            self._centroids = shard_rows(v_centroids, self._smesh)
+            self._lists_codes = shard_rows(lists_codes, self._smesh)
+            self._lists_norms = shard_rows(lists_norms, self._smesh)
+            self._lists_ids = shard_rows(lists_ids, self._smesh)
+            self._cent_valid = shard_rows(cent_valid, self._smesh)
+            return
+        dev = device()
+        self._centroids = torch.from_numpy(v_centroids).to(dev)
+        self._lists_codes = torch.from_numpy(lists_codes).to(dev)
+        self._lists_norms = torch.from_numpy(lists_norms).to(dev)
+        self._lists_ids = torch.from_numpy(lists_ids).to(dev)
+        self._cent_valid = None
+
+    def _mesh(self):
+        from ..parallel.mesh import collection_mesh
+
+        return collection_mesh()
 
     def _linear_scan(self, qpad, mask, scan_k):
         """Exact scan over the list-concatenated code buffer ((KV, L, D)
         viewed flat), padding and filter fused as a mask; scan positions map
         back to global rows through the host flat-id table. Serves the
         brute-force fallback, explicit is_linear queries, and the
-        filtered-probe safety net."""
-        kv, lmax = self._lists_ids.shape
-        dev = self._lists_codes.device
+        filtered-probe safety net. Under a mesh every shard scans its lists'
+        buffer and the per-shard top-k merge: the positions are those of the
+        padded buffer, shard after shard."""
         ids = self._flat_ids
         valid = ids >= 0
         if mask is not None:
             valid = valid & np.asarray(mask, dtype=bool)[np.clip(ids, 0, None)]
-        sims, pos = blockwise_topk_search(
-            torch.from_numpy(np.ascontiguousarray(qpad)).to(dev),
-            self._lists_codes.reshape(kv * lmax, -1),
-            self.metric,
-            min(scan_k, int(valid.sum()) or 1),
-            mask=torch.from_numpy(valid).to(dev),
-            x_sq_norms=self._lists_norms.reshape(kv * lmax),
-            dequant=self._dequant,
-            int4_packed=self._int4_packed,
-        )
+        k = min(scan_k, int(valid.sum()) or 1)
+        if self._smesh is not None:
+            from ..parallel.mesh import shard_rows, sharded_flat_search
+
+            sims, pos = sharded_flat_search(
+                self._smesh,
+                torch.from_numpy(np.ascontiguousarray(qpad)),
+                [c.reshape(c.shape[0] * c.shape[1], -1) for c in self._lists_codes],
+                self.metric,
+                k,
+                mask=shard_rows(valid, self._smesh),
+                x_sq_norms=[nr.reshape(-1) for nr in self._lists_norms],
+                dequant=self._dequant,
+                int4_packed=self._int4_packed,
+            )
+        else:
+            kv, lmax = self._lists_ids.shape
+            dev = self._lists_codes.device
+            sims, pos = blockwise_topk_search(
+                torch.from_numpy(np.ascontiguousarray(qpad)).to(dev),
+                self._lists_codes.reshape(kv * lmax, -1),
+                self.metric,
+                k,
+                mask=torch.from_numpy(valid).to(dev),
+                x_sq_norms=self._lists_norms.reshape(kv * lmax),
+                dequant=self._dequant,
+                int4_packed=self._int4_packed,
+            )
         sims = sims.cpu().numpy()
         pos = pos.cpu().numpy()
         idx = np.where(pos >= 0, ids[np.clip(pos, 0, None)], -1)
@@ -442,8 +497,9 @@ class IvfEngine(VectorIndexEngine):
         # scans the list-concatenated codes once instead of probing every
         # list (`ivf_searcher.cc:185` threshold behaviour)
         linear = self._n < _BRUTE_FORCE_THRESHOLD or getattr(param, "is_linear", False)
-        nprobe = min(nprobe + self._extra_probes, self._centroids.shape[0])
-        dev = self._centroids.device
+        # every virtual list, the dummy lists of a sharded engine included
+        kv = sum(c.shape[0] for c in self._centroids) if self._smesh is not None else self._centroids.shape[0]
+        nprobe = min(nprobe + self._extra_probes, kv)
         # pad the batch to a bucket, as the JAX engine does
         nq_pad = bucket_queries(nq)
         qpad = np.zeros((nq_pad, queries.shape[1]), np.float32)
@@ -452,7 +508,28 @@ class IvfEngine(VectorIndexEngine):
         scan_k = 2 * topk if self.use_soar else topk
         if linear:
             sims, idx = self._linear_scan(qpad, mask, scan_k)
+        elif self._smesh is not None:
+            from ..parallel.mesh import sharded_ivf_probe
+
+            s_dev, i_dev = sharded_ivf_probe(
+                self._smesh,
+                torch.from_numpy(qpad),
+                self._centroids,
+                self._lists_codes,
+                self._lists_norms,
+                self._lists_ids,
+                self._cent_valid,
+                torch.from_numpy(np.asarray(mask, dtype=bool)) if mask is not None else None,
+                self._dequant,
+                metric=self.metric,
+                nprobe=nprobe,
+                topk=scan_k,
+                int4_packed=self._int4_packed,
+                max_scan=max_scan,
+            )
+            sims, idx = s_dev.cpu().numpy(), i_dev.cpu().numpy().astype(np.int64)
         else:
+            dev = self._centroids.device
             s_dev, i_dev = ivf_probe_core(
                 torch.from_numpy(qpad).to(dev),
                 self._centroids,

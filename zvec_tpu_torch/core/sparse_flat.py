@@ -4,8 +4,11 @@ Port of `zvec_tpu/core/sparse_flat.py` (reference equivalent:
 `src/core/algorithm/flat_sparse/`, brute force over sparse postings). Docs
 live as padded index/value tensors on the device; every query batch densifies
 there and the scan is a gather + reduce (`ops/sparse.py`). Sparse vectors
-support the IP metric only (`distance_helper.py:148-150`). Multi-GPU row
-sharding is not ported.
+support the IP metric only (`distance_helper.py:148-150`). Under a
+collection mesh (`init(mesh_devices=S)`, at least 512 rows) the padded rows
+split into S contiguous shards, one per mesh device, and a query batch scans
+every shard before the per-shard top-k merge
+(`parallel/mesh.py::sharded_sparse_topk`).
 """
 
 from __future__ import annotations
@@ -36,9 +39,18 @@ class SparseFlatEngine(VectorIndexEngine):
     def __init__(self, metric: MetricType = MetricType.IP, dimension: int = 0, params=None):
         super().__init__(MetricType.IP, dimension, params)
         self._n = 0
-        self._doc_idx: Optional[torch.Tensor] = None  # (n_pad, P) int32, -1 pad
-        self._doc_val: Optional[torch.Tensor] = None  # (n_pad, P) f32
+        # (n_pad, P) int32 (-1 pad) and f32 rows; one (n_pad / S, P) tensor per
+        # shard under a mesh
+        self._doc_idx: Optional[torch.Tensor] = None
+        self._doc_val: Optional[torch.Tensor] = None
+        self._n_pad = 0
         self._vocab = 1
+        self._smesh = None  # the collection mesh when the rows are sharded
+
+    def _mesh(self):
+        from ..parallel.mesh import collection_mesh
+
+        return collection_mesh()
 
     def _rebuild(self, rows: List[Optional[Dict[int, float]]]) -> None:
         self._n = len(rows)
@@ -46,14 +58,23 @@ class SparseFlatEngine(VectorIndexEngine):
             self._doc_idx = None
             return
         idx, val, vocab = pad_sparse_rows(list(rows))
-        n_pad = round_up(self._n, _ROW_ALIGN)
+        mesh = self._mesh()
+        self._smesh = mesh if (mesh is not None and self._n >= _ROW_ALIGN) else None
+        s_count = self._smesh.shape["corpus"] if self._smesh is not None else 1
+        n_pad = self._n_pad = round_up(self._n, _ROW_ALIGN * s_count)
         pidx = np.full((n_pad, idx.shape[1]), -1, dtype=np.int32)
         pval = np.zeros((n_pad, val.shape[1]), dtype=np.float32)
         pidx[: self._n] = idx
         pval[: self._n] = val
-        dev = device()
-        self._doc_idx = torch.from_numpy(pidx).to(dev)
-        self._doc_val = torch.from_numpy(pval).to(dev)
+        if self._smesh is not None:
+            from ..parallel.mesh import shard_rows
+
+            self._doc_idx = shard_rows(pidx, self._smesh)
+            self._doc_val = shard_rows(pval, self._smesh)
+        else:
+            dev = device()
+            self._doc_idx = torch.from_numpy(pidx).to(dev)
+            self._doc_val = torch.from_numpy(pval).to(dev)
         self._vocab = int(round_up(max(vocab, 1), 128))
 
     def _prep_query_arrays(self, queries, param=None):
@@ -75,13 +96,27 @@ class SparseFlatEngine(VectorIndexEngine):
         return q_idx, q_val
 
     def _device_mask(self, mask: Optional[np.ndarray]) -> torch.Tensor:
-        """The (n_pad,) row filter on the device: pad rows out, then `mask`."""
-        full_mask = np.zeros(self._doc_idx.shape[0], dtype=bool)
+        """The (n_pad,) row filter on the device: pad rows out, then `mask`
+        (one tensor per shard under a mesh)."""
+        full_mask = np.zeros(self._n_pad, dtype=bool)
         full_mask[: self._n] = True if mask is None else mask
+        if self._smesh is not None:
+            from ..parallel.mesh import shard_rows
+
+            return shard_rows(full_mask, self._smesh)
         return torch.from_numpy(full_mask).to(self._doc_idx.device)
 
     def _exact_scan(self, q_idx: np.ndarray, q_val: np.ndarray, dmask: torch.Tensor, k: int):
-        """`sparse_ip_topk` over the whole column -> host (sims, idx int64)."""
+        """`sparse_ip_topk` over the whole column (over every shard, then
+        the merge, under a mesh) -> host (sims, idx int64)."""
+        if self._smesh is not None:
+            from ..parallel.mesh import sharded_sparse_topk
+
+            sims, idx = sharded_sparse_topk(
+                self._smesh, torch.from_numpy(q_idx), torch.from_numpy(q_val),
+                self._doc_idx, self._doc_val, dmask, topk=k, vocab=self._vocab,
+            )
+            return sims.cpu().numpy(), idx.cpu().numpy()
         dev = self._doc_idx.device
         sims, idx = sparse_ip_topk(
             torch.from_numpy(q_idx).to(dev),

@@ -1292,8 +1292,9 @@ class CollectionImpl:
 
         Returns finalize() -> {field: (sims (B, topk), doc_ids (B, topk))},
         or None when any populated segment can't take this path (a sparse
-        engine other than the flat one, Hamming/binary metrics, an empty
-        engine): callers fall back to overlapped per-field dispatch."""
+        engine other than the flat one, mesh-sharded residency, Hamming /
+        binary metrics, an empty engine): callers fall back to overlapped
+        per-field dispatch."""
         import torch
 
         from ..core.flat import FlatEngine
@@ -1321,7 +1322,7 @@ class CollectionImpl:
             if de.metric not in (MetricType.L2, MetricType.IP, MetricType.COSINE):
                 return None
             se._ensure_fresh()
-            if se._n == 0:
+            if se._smesh is not None or se._n == 0:
                 return None
             n_rows = seg.doc_count
             alive = self.deletes.alive_mask(seg.doc_id_start, n_rows)
@@ -1341,6 +1342,8 @@ class CollectionImpl:
             )
             if type(de) is FlatEngine:
                 de._ensure_fresh()
+                if de._mesh() is not None:
+                    return None
                 st = de._st
                 if st.n == 0:
                     return None

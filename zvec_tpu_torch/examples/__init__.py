@@ -3,6 +3,7 @@
   quickstart          — a collection with scalar fields, insert, filtered search
   hybrid_multivector  — BM25 sparse + dense fields fused by RrfReRanker
   quantized_groupby   — an INT8 cosine HNSW index, refine, filter and group-by
+  mesh_sharding       — a FLAT collection split over 8 corpus shards
 
 They are `examples/*.py` of the JAX package, run on this package's device (the
 card when there is one). Each `main(path=None)` works in a fresh temporary

@@ -34,14 +34,11 @@ def init(
     memory_limit_mb: Optional[int] = None,
     mesh_devices: Optional[int] = None,
 ) -> None:
-    """Initialize process-wide configuration. Once-only; raises RuntimeError on
-    a second call. None args keep environment-derived defaults.
-    `mesh_devices=N>1` raises NotImplementedError: sharding over several
-    GPUs is not ported yet."""
-    if mesh_devices is not None and mesh_devices > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1 is not supported by zvec_tpu_torch yet"
-        )
+    """Initialize process-wide configuration. Once-only: a second call is a
+    no-op. None args keep environment-derived defaults. `mesh_devices=N > 1`
+    splits every sealed segment into N corpus shards placed round-robin over
+    the CUDA cards there are (all on the CPU without one); each query runs on
+    every shard and the per-shard top-k merge (`parallel/mesh.py`)."""
     GlobalConfig.instance().initialize(
         log_type=log_type,
         log_level=log_level,
