@@ -17,6 +17,7 @@ import time
 from pathlib import Path
 
 os.environ["ZVEC_SPARSE_CLUSTERED"] = "1"  # the JAX engine's switch; the port's is an attribute
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax  # noqa: E402

@@ -5,11 +5,14 @@ on the CPU mesh) and their torch ports. Tolerance 1e-4 (rtol and atol):
 float32 sums taken in another order. Top-k results must carry the same ids.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 import jax.numpy as jnp  # noqa: E402
 
 from zvec_tpu.ops import distance as jd  # noqa: E402
@@ -190,6 +193,6 @@ def test_runtime_matches_jax_runtime():
         assert tr.bucket_queries(nq) == jr.bucket_queries(nq)
     assert tr.round_up(1_000_000, 8192) == jr.round_up(1_000_000, 8192) == 1_007_616
     assert tr.cdiv(10, 4) == jr.cdiv(10, 4) == 3
-    assert tr.device().type == ("cuda" if torch.cuda.is_available() else "cpu")
+    assert tr.device().type == "cpu"  # asked for at the top of this file
     vals, idx = tr.topk_desc(torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]]), 3)
     assert idx.tolist() == [[1, 2, 4]] and vals.tolist() == [[3.0, 3.0, 3.0]]

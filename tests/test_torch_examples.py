@@ -9,6 +9,7 @@ graph build at the default efc = 500 takes about half a minute per package on
 the CPU. The card runs it whole (`chip_smoke.py --phases tools`).
 """
 
+import os
 import ast
 import functools
 import importlib.util
@@ -19,6 +20,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402

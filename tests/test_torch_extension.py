@@ -9,6 +9,7 @@
   (`ops/runtime.device()`), where zvec_tpu defaults to "cpu".
 """
 
+import os
 import sys
 import types
 
@@ -17,6 +18,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402

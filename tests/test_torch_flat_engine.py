@@ -6,11 +6,14 @@ on (the default for quantized codes) and off. Ids must be equal and scores
 within 1e-4 (rtol and atol: float32 sums in another order).
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402

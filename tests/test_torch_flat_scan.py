@@ -12,11 +12,14 @@ JAX test's own bar, >= K-1 overlap and top-1 score within 1e-3, because the
 TPU kernel scores those codes through bf16.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 import jax.numpy as jnp  # noqa: E402
 
 from zvec_tpu.ops.flat_pallas import flat_scan_topk as jax_scan  # noqa: E402

@@ -17,16 +17,20 @@ torch = pytest.importorskip("torch")
 
 from zvec_tpu_torch.ops import flat_scan as fs  # noqa: E402
 from zvec_tpu_torch.ops.quantize import pack_int4  # noqa: E402
+from zvec_tpu_torch.ops.runtime import DEVICE_ENV, device  # noqa: E402
 from zvec_tpu_torch.typing import MetricType  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the flat-scan kernel has no CPU mode")
-    return torch.device("cuda")
+    monkeypatch.setenv(DEVICE_ENV, "cuda")  # the card, asked for: a CPU test file of the same process asks for the CPU
+    device.cache_clear()
+    yield torch.device("cuda")
+    device.cache_clear()
 
 
 def _case(ctype, metric, n=8192, d=40, nq=70, seed=0):

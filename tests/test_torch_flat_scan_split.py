@@ -14,10 +14,13 @@ relative. It also shows that one unsplit TF32 pass misses the key tolerance on
 the same data, so the split is needed.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 from zvec_tpu_torch.ops import flat_scan as fs  # noqa: E402
 from zvec_tpu_torch.ops.quantize import pack_int4  # noqa: E402

@@ -10,6 +10,7 @@ The port returns the four result tensors of a fused pair as they are, so
 JAX package) has no counterpart here.
 """
 
+import os
 import math
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402

@@ -9,11 +9,14 @@ Float32 sums in another order may flip a dominance test that sits within
 an ulp, which is why the device branch is held to 99% of rows.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import jax.numpy as jnp  # noqa: E402
 

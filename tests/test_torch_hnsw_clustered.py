@@ -25,11 +25,14 @@ port. Tolerances:
   bf16 and int8-cosine builds (the floor of zvec_tpu's own tests).
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import jax.numpy as jnp  # noqa: E402
 

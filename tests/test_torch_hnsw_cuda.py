@@ -21,16 +21,20 @@ from zvec_tpu_torch.core.hnsw import HnswEngine  # noqa: E402
 from zvec_tpu_torch.model.param.param import HnswIndexParam  # noqa: E402
 from zvec_tpu_torch.ops import hnsw as ops  # noqa: E402
 from zvec_tpu_torch.ops.flat_scan import flat_scan_topk  # noqa: E402
+from zvec_tpu_torch.ops.runtime import DEVICE_ENV, device  # noqa: E402
 from zvec_tpu_torch.typing import MetricType  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the flat-scan kernel has no CPU mode")
-    return torch.device("cuda")
+    monkeypatch.setenv(DEVICE_ENV, "cuda")  # the card, asked for: a CPU test file of the same process asks for the CPU
+    device.cache_clear()
+    yield torch.device("cuda")
+    device.cache_clear()
 
 
 @pytest.mark.parametrize("metric", ["L2", "COSINE"])

@@ -8,11 +8,14 @@ id set, with scores within 1e-4 (rtol and atol: float32 sums in another
 order). 40 queries, so done_frac=0.97 stops the batch one query early.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402

@@ -11,11 +11,14 @@ teleport slots and the medoid entries identical). Each package loads the graph
 file the other wrote.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -20,16 +20,20 @@ from zvec_tpu_torch.core.ivf import IvfEngine, ivf_probe_core  # noqa: E402
 from zvec_tpu_torch.model.param.param import IVFIndexParam, IVFQueryParam  # noqa: E402
 from zvec_tpu_torch.ops.hnsw import assign_top2_blocked  # noqa: E402
 from zvec_tpu_torch.ops.kmeans import assign, kmeanspp_seed, lloyd  # noqa: E402
+from zvec_tpu_torch.ops.runtime import DEVICE_ENV, device  # noqa: E402
 from zvec_tpu_torch.typing import MetricType  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: these compare the card with the CPU")
-    return torch.device("cuda")
+    monkeypatch.setenv(DEVICE_ENV, "cuda")  # the card, asked for: a CPU test file of the same process asks for the CPU
+    device.cache_clear()
+    yield torch.device("cuda")
+    device.cache_clear()
 
 
 def _clustered(n, d, seed):

@@ -8,11 +8,14 @@ beams run on graph arrays that zvec_tpu built under its mesh, with a shard
 whose graph has fewer upper levels than the others.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -10,6 +10,7 @@ the reference's answers (its fallbacks: no in-beam harvest, no fused pair).
 Shards stay under 8,192 rows, where both packages build identical graphs.
 """
 
+import os
 import shutil
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402

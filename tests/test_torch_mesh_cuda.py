@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from zvec_tpu_torch.model.param.param import HnswIndexParam, IVFIndexParam  # noqa: E402
 from zvec_tpu_torch.ops.flat_scan import flat_scan_topk  # noqa: E402
+from zvec_tpu_torch.ops.runtime import DEVICE_ENV, device  # noqa: E402
 from zvec_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from zvec_tpu_torch.typing import MetricType  # noqa: E402
 from zvec_tpu_torch.utils.config import GlobalConfig  # noqa: E402
@@ -33,8 +34,11 @@ RTOL = 1e-4
 def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: these compare the card with the CPU")
+    monkeypatch.setenv(DEVICE_ENV, "cuda")  # the card, asked for: a CPU test file of the same process asks for the CPU
+    device.cache_clear()
     monkeypatch.setattr(GlobalConfig.instance(), "mesh_devices", S)
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    device.cache_clear()
 
 
 def _cpu(x):

@@ -23,11 +23,14 @@ The JAX engine's chunked-insertion build (`ZVEC_HNSW_BUILD=insert`) fails on
 every fresh engine; a test pins that, which is why the port has no such build.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import zvec_tpu  # noqa: E402
 import zvec_tpu_torch  # noqa: E402

@@ -22,15 +22,19 @@ torch = pytest.importorskip("torch")
 import zvec_tpu_torch as zt  # noqa: E402
 from zvec_tpu_torch.core.hnsw import HnswEngine  # noqa: E402
 from zvec_tpu_torch.ops import hnsw as ops  # noqa: E402
+from zvec_tpu_torch.ops.runtime import DEVICE_ENV, device  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's engines run there")
-    return torch.device("cuda")
+    monkeypatch.setenv(DEVICE_ENV, "cuda")  # the card, asked for: a CPU test file of the same process asks for the CPU
+    device.cache_clear()
+    yield torch.device("cuda")
+    device.cache_clear()
 
 
 def _ties_only(cs, ci, ps, pi, rtol=1e-4):

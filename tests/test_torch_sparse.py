@@ -11,6 +11,7 @@ one non-zero per slot and is bitwise equal. Then the cases of
 API, and a collection written by either package opens in the other.
 """
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from zvec_tpu_torch.core.hnsw_sparse import SparseHnswEngine  # noqa: E402
 from zvec_tpu_torch.model.param.param import HnswIndexParam  # noqa: E402
 from zvec_tpu_torch.ops.hnsw_sparse import hnsw_sparse_search  # noqa: E402
+from zvec_tpu_torch.ops.runtime import DEVICE_ENV, device  # noqa: E402
 from zvec_tpu_torch.ops.sparse import (  # noqa: E402
     _densify_queries,
     _signature_chunk,
@@ -33,10 +34,13 @@ RTOL = 1e-5
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: this file compares the card with the CPU")
-    return torch.device("cuda")
+    monkeypatch.setenv(DEVICE_ENV, "cuda")  # the card, asked for: a CPU test file of the same process asks for the CPU
+    device.cache_clear()
+    yield torch.device("cuda")
+    device.cache_clear()
 
 
 def _rows(seed, n, p, vocab):

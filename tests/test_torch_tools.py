@@ -3,6 +3,7 @@ and tests/test_txt2vecs.py against the port, and collections built by one
 package's `tools.build` read by the other's `tools.recall` with equal recall
 (both walk the same graph file)."""
 
+import os
 import json
 
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+os.environ["ZVEC_TORCH_DEVICE"] = "cpu"  # the port runs on the CPU here, asked for (ops/runtime.device)
 
 from zvec_tpu_torch.tools import bench, build, recall  # noqa: E402
 from zvec_tpu_torch.tools.io import read_vecs, write_vecs  # noqa: E402

@@ -9,8 +9,9 @@ RerankFunction.
 
 Copied from `zvec_tpu/extension/providers.py` with one difference: the local
 sentence-transformers classes default to the port's device
-(`ops/runtime.device()`: the card when there is one), where the JAX package
-defaults to "cpu".
+(`ops/runtime.device()`: the card, or the CPU when `ZVEC_TORCH_DEVICE=cpu`
+asks for it; with neither, they raise), where the JAX package defaults to
+"cpu".
 """
 
 from __future__ import annotations

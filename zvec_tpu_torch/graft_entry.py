@@ -1,15 +1,16 @@
 """Entry points of the port, after the JAX package's `__graft_entry__.py`.
 
 `entry()` returns a single-device step of the flagship search path (the
-blockwise exact scan + top-k) and its inputs, on the card when one is present.
+blockwise exact scan + top-k) and its inputs, on the port's device
+(`ops/runtime.device`).
 
 `dryrun_multichip(n)` builds an n-slot ('batch', 'corpus') mesh, runs one
 sharded exact query step (per-shard top-k, then the merge) and one sharded
 k-means step on tiny shapes, then drives the FLAT, HNSW, IVF and sparse HNSW
 paths through the public API with `mesh_devices = n`: every engine shards its
 sealed segment over n shards and must find each query's own document first.
-It runs on the card when one is present (the n shards placed round-robin over
-the cards there are), else on the CPU.
+It runs on the card (the n shards placed round-robin over the cards there
+are), or on the CPU when `ZVEC_TORCH_DEVICE=cpu` asks for it.
 """
 
 from __future__ import annotations

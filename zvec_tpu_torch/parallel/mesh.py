@@ -21,7 +21,8 @@ serialize across them.
 Deliberate difference: the reference's `collection_mesh()` returns None
 (unsharded) when fewer than N devices exist. Here N shards are placed
 round-robin over the cards there are (several shards on one card, or all of
-them on the CPU), so `init(mesh_devices=N)` always shards.
+them on the CPU when `ZVEC_TORCH_DEVICE=cpu` asks for it), so
+`init(mesh_devices=N)` always shards.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.runtime import device as runtime_device
 from ..ops.topk import merge_topk
 from ..typing.enum import MetricType
 
@@ -80,14 +82,16 @@ def make_mesh(
     n_devices: Optional[int] = None, batch_axis: int = 1, device=None
 ) -> Mesh:
     """2D mesh ('batch', 'corpus') of `n_devices` slots. Slot j takes
-    `cuda:{j % device_count}` when a card is present, else the CPU; `device`
-    pins every slot to one device (the CPU tests pass `"cpu"`)."""
+    `cuda:{j % device_count}`; every slot is the CPU only when
+    `ZVEC_TORCH_DEVICE=cpu` asks for it, and with no card and no such request
+    this raises (`ops/runtime.device`). `device` pins every slot to one
+    device."""
     if device is not None:
         devs = [torch.device(device)]
-    elif torch.cuda.is_available():
-        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    elif runtime_device().type == "cpu":
+        devs = [runtime_device()]
     else:
-        devs = [torch.device("cpu")]
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     n = n_devices or len(devs)
     if batch_axis < 1 or n % batch_axis:
         raise ValueError(f"{n} devices do not split into {batch_axis} batch rows")

@@ -13,6 +13,7 @@ from .db.collection_impl import CollectionImpl
 from .model.collection import Collection
 from .model.param.param import CollectionOption
 from .model.schema import CollectionSchema
+from .ops.runtime import device
 from .typing.enum import LogLevel, LogType
 from .utils.config import GlobalConfig
 
@@ -37,8 +38,9 @@ def init(
     """Initialize process-wide configuration. Once-only: a second call is a
     no-op. None args keep environment-derived defaults. `mesh_devices=N > 1`
     splits every sealed segment into N corpus shards placed round-robin over
-    the CUDA cards there are (all on the CPU without one); each query runs on
-    every shard and the per-shard top-k merge (`parallel/mesh.py`)."""
+    the CUDA cards there are (all on the CPU when `ZVEC_TORCH_DEVICE=cpu`
+    asks for it; with neither, opening a collection raises); each query runs
+    on every shard and the per-shard top-k merge (`parallel/mesh.py`)."""
     GlobalConfig.instance().initialize(
         log_type=log_type,
         log_level=log_level,
@@ -60,7 +62,10 @@ def create_and_open(
     schema: CollectionSchema,
     option: CollectionOption = CollectionOption(),
 ) -> Collection:
-    """Create a new collection at `path` and open it."""
+    """Create a new collection at `path` and open it. Raises RuntimeError,
+    before anything is written, when no card is visible and the CPU was not
+    asked for (`ops/runtime.device`)."""
+    device()
     impl = CollectionImpl.create_and_open(
         path, schema, read_only=option.read_only, enable_mmap=option.enable_mmap
     )
@@ -70,7 +75,9 @@ def create_and_open(
 def open(
     path: str, option: CollectionOption = CollectionOption()
 ) -> Collection:
-    """Open an existing collection, recovering from manifest + WAL."""
+    """Open an existing collection, recovering from manifest + WAL. Raises
+    as `create_and_open` does when there is no device to hold it."""
+    device()
     impl = CollectionImpl.open(
         path, read_only=option.read_only, enable_mmap=option.enable_mmap
     )
