@@ -1,11 +1,22 @@
 """Smoke run of zvec_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,cohere,sparse,fusion,tools,mesh]
+    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,live,cohere,sparse,fusion,tools,mesh]
 
 With no arguments every phase runs and the two JSON lines are printed; a
 subset of phases (for work on one path) prints no JSON line. `mesh` reopens
 the collections of `flat`, `hnsw` and `ivf`, so a subset that names it names
-those three too.
+those three too; `live` runs on the collection of `clustered`, so a subset
+that names it names `clustered` too.
+
+Phases 1-3c run in this process, alone on the card. The later phases run in
+three worker processes started together on the one card (GROUPS: flat, hnsw,
+ivf, mesh; clustered, live; cohere, sparse, fusion, tools), each group's
+phases one after another in its worker, which writes its launch counts and
+kernel cases to a JSON file; each worker's log is printed when it ends. The
+groups are independent, so their host-bound work runs side by side on the
+host's cores; the K1 times of phases 3-3c are taken alone, those of 8c
+beside the other groups. The first failing worker, or one still running
+GROUP_DEADLINE_S after the start, stops them all.
 
 Phases (any failure raises, and the exit code is non-zero):
   1. toolchain: torch / CUDA / nvcc versions and the card's name and power
@@ -23,6 +34,9 @@ Phases (any failure raises, and the exit code is non-zero):
   3b. the same kernel at the shape the HNSW build gives it: N=1M (padded to
      1,000,448 rows), Q=2048 code rows, k=128, fp32 L2 and COSINE, against its
      plain version (stage one and the final top-128)
+  3c. the same at the shape the Cohere build of 8b gives it, on that
+     deployment's own rows: N=450,000 (padded to 450,560), D=768, Q=1024 code
+     rows, k=128, fp32 COSINE
   6. the HNSW path through the public API: HnswIndexParam(L2) with the
      default m=50, ef_construction=500 -> insert the same 1M docs -> optimize
      (graph build on the card, the kernel scoring its forward kNN pass) ->
@@ -30,7 +44,7 @@ Phases (any failure raises, and the exit code is non-zero):
      500 (recall@10 against the exact oracle; >= 0.85 at ef=500), one profiled
      ef=256 batch, the CUDA beam against the same beam on CPU copies of its
      tensors (64 queries), and a reopen that loads the graph from disk. The
-     docs carry an int64 `grp` field of 50 values: 64 group_by_query calls
+     docs carry an int64 `grp` field of 50 values: 32 group_by_query calls
      (10 groups x 2 at ef=500, the groups harvested inside the beam) are
      compared with the same grouping of the exact oracle's top-1,000 (at
      most 2 rows per group, the best 64 rows, then the 10 groups with the
@@ -60,24 +74,53 @@ Phases (any failure raises, and the exit code is non-zero):
      merge, on bf16 build codes) -> flush -> batch_query_many over 4 blocks
      of 1024 queries at ef 32 / 64 / 128 / 256 (recall@10 against the
      exact oracle: >= 0.95 at ef=128, >= 0.965 at ef=256), no K1 launch in
-     the build, the hashed visited set in the beam, 64 group_by_query calls
+     the build, the hashed visited set in the beam, 32 group_by_query calls
      at ef=256 (>= 0.9 of the (query, group) pairs equal to the exact
      grouping under the harvest buffer's rule), the CUDA beam and grouped beam against the CPU's (64 / 16
-     queries), bucket_knn_all on the card against the CPU for 8
+     queries), bucket_knn_all on the card against the CPU for 4
      buckets of the build, profiles of one forward-prune and one NN-descent
      batch, and a reopen that loads the graph without k-means or prune. Then
      routed traversal on the same graph: the collection's graph file loaded
      into an engine with an int8 route tier, then one with a bf16 tier (no
-     graph build; the route is made from the codes), each at ef 128 / 256
+     graph build; the route is made from the codes), each at ef 128
      beside the unrouted engine: recall@10 (within 0.02 of the unrouted),
      ms per 1024-query batch (median of 3), the largest error of a returned
      score against its exact fp32 score (<= 1e-3 relative), the route's build
      seconds, peak device memory, a profiled ef=128 batch with the code
      gathers' share of device time (beside the unrouted engine's), and the
-     routed beam on the card against the CPU on 16 queries
+     routed beam on the card against the CPU on 16 queries. The docs also
+     carry the live phase's fields: a `tag` string (inverted index), a
+     `price` double (both drawn as benchmarks/bench_ivf10m.py::fields_arrays
+     draws them) and a `gid` int (i % 997)
+  8c. live: benchmarks/bench_filtered10m.py on phase 8's reopened collection,
+     then its write life, with no optimize. A: the filters `price < 0.5`,
+     `tag = 't3'`, `tag = 't3' AND price < 0.1` (and none) at ef 96 / 256 over
+     the 1024 queries, recall@10 against an exact fp32 oracle on the card over
+     the filter's rows, the batch ms, and the path each took (the HNSW beam, the
+     device scan with is_linear, or the host exact scan), which must be the
+     brute-force-by-keys rule's, also for one query as bench_filtered10m.py
+     reads the path; a demoted filter reads 1.0 outside near-ties,
+     a graph-served one >= 0.93 / 0.96 at ef 96 / 256. B: group_by_query on
+     gid (group_count 10 and 50, 2 each) on 16 queries, 3 repeats, beside a
+     plain query at topk group_count x 2. C: delete 1% of the pks,
+     delete_by_filter('gid = 5'), upsert 10,000 pks with fresh vectors, update
+     the price of 10,000 pks to 0.05 (2,000 of them upserted before), insert
+     100,000 new docs: the writing segment then holds 120,000 rows and K1 scans
+     it; against a plain reference of the live collection: no deleted pk and
+     no superseded version in the unfiltered and the three filtered ef=256
+     batches, recall@10 within 0.01 of A's unfiltered figure, the filters at
+     A's floors, read-your-writes (1,000 new and 1,000 upserted docs queried
+     by their own vectors return themselves at rank 1), and K1 against its
+     plain version on the writing segment's codes with its live mask, with
+     and without a filter. D: a reader thread runs batch_query of 64 queries
+     in a loop while C's inserts run: no error, no deleted pk. E: a crash
+     (the impl closed without a flush) and open: the WAL replayed, the same
+     doc count, C's four batches with identical ids, the sealed graph loaded
+     from its file with no K1 launch and no build, the writing segment's
+     engine on the card
   8b. cohere: the deployment of benchmarks/bench_cohere10m.py (the reference's
      own Cohere-10M headline, after the upstream tools/core/README.md) with its
-     rows cut from 10,000,000 to 500,000 (the time limit; VectorDBBench's
+     rows cut from 10,000,000 to 450,000 (the time limit; VectorDBBench's
      Performance768D1M holds 1,000,000): the benchmark's generator copied
      (1024 centres x 2.0, unit-norm rows, seed 0xC0EE), VECTOR_FP32 768-d,
      HnswIndexParam(COSINE, m=50,
@@ -89,9 +132,8 @@ Phases (any failure raises, and the exit code is non-zero):
      card: refined >= 0.95 at ef 128, >= 0.965 at 250, refined >= unrefined at
      every ef, refined scores the exact cosine distances; where recall stops:
      done_frac 1.0, ef 500, lost queries, L0 in-degrees), recall@1/10/50/100
-     at ef 250, the host refine's share of a batch, K1 against its plain
-     version at the build's shape (Q 1024, k 128, N 500,736, D 768, fp32
-     COSINE), a profiled ef=128 batch, the int8 beam on the card against CPU
+     at ef 250 (50 / 100 on 250 queries), the host refine's share of a batch
+     (K1 at the build's shape is phase 3c), a profiled ef=128 batch, the int8 beam on the card against CPU
      copies (16 queries), and a reopen that loads the graph without a build
   9. the sparse HNSW path through the public API, on the deployment of
      benchmarks/bench_sparse1m.py with its rows cut from 1,000,000 to 200,000:
@@ -121,11 +163,12 @@ Phases (any failure raises, and the exit code is non-zero):
      tools.io.write_vecs, tools.build --index flat and --index hnsw (m 16,
      ef_construction 200), tools.recall against ground truth from the exact
      oracle on the card (FLAT recall@10 1.0; HNSW equal to the recall of
-     batch_query_many on the same collection), tools.bench for 5 s at batch 1
+     batch_query_many on the same collection), tools.bench for 2 s at batch 1
      and 1024 on both (qps, p50, p99), K1's launches on the FLAT path; then the
      three examples of zvec_tpu_torch/examples/ on the card, whose ids must
      equal those of a CPU run of the same examples (a process that asks for
-     the CPU with ZVEC_TORCH_DEVICE=cpu and sees no card)
+     the CPU with ZVEC_TORCH_DEVICE=cpu and sees no card); quantized_groupby
+     at 1,000 rows and ef_construction 100 in both, as the CPU test runs it
  12. mesh: graft_entry.dryrun_multichip(4) on the card, then GlobalConfig
      mesh_devices = 4 (as the JAX package's dry run turns its mesh on) and the
      collections of phases 4, 6 and 7 reopened under 4 corpus shards, all on
@@ -134,21 +177,22 @@ Phases (any failure raises, and the exit code is non-zero):
      launched on every shard); HNSW rebuilt through create_index with knn_k =
      127 (the pool phase 6's 1M layer gets from the size rule; a 250,112-row
      shard would get 500 and the blockwise scan) into 4 shard graphs on K1,
-     per-shard build seconds, ef 128 / 256 recall@10 no more than 0.01 under
+     per-shard build seconds, ef 128 recall@10 no more than 0.01 under
      phase 6's, the sharded beam on the card against CPU copies of the shards
      on 16 queries, and a reopen that loads the sharded graph file without a
      build; IVF without k-means, recall@10 at nprobe 16 no more than 0.001
-     under phase 7's, the 5% filter at recall 1.0; then 25,000 of phase 9's
+     under phase 7's, the 5% filter at recall 1.0; then 12,500 of phase 9's
      documents (rows cut from 200,000 for time, widths kept) in a sparse HNSW
      field of 4 shards built by the exact per-shard pass: the sparse FLAT scan
      (is_linear) at recall >= 0.999 and the beam at ef 128 within 0.02 of an
      unsharded engine on the same documents; peak device memory
 
-Phases 3, 3b and 8b print, beside each stage-one time, its bound (the larger of
-the split-TF32 tensor-core work over 495 TFLOP/s and the bytes over 3.35
-TB/s, with the FLOP and byte counts), the roofline share (bound / time) and,
-for fp32 codes, a library yardstick: torch.matmul of the same (Q, D) x (D, N)
-product in full fp32, the product only (the port never calls it).
+Phases 3, 3b, 3c and 8c print, beside each stage-one time, its bound (the
+larger of the split-TF32 tensor-core work over 495 TFLOP/s and the bytes
+over 3.35 TB/s, with the FLOP and byte counts), the roofline share (bound /
+time) and, for fp32 codes, a library yardstick: torch.matmul of the same (Q,
+D) x (D, N) product in full fp32, the product only (the port never calls
+it).
 
 The line before the last is a JSON object with the kernel's launches, error,
 times, bound and yardstick; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -158,6 +202,7 @@ card; exits non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -208,12 +253,12 @@ CL_FLOORS = {128: 0.95, 256: 0.965}  # recall@10
 # recall@10 of zvec_tpu on the uncut 10M deployment on its own chip
 # (benchmarks/h2h10m_results.json); recall only, a smaller corpus should read no lower
 CL_REF_CURVE_10M = {32: 0.858, 64: 0.924, 96: 0.950, 128: 0.959, 256: 0.973}
-CL_BUCKETS = 8  # buckets of the real build checked card against CPU
+CL_BUCKETS = 4  # buckets of the real build checked card against CPU (the script's time limit)
 BUCKET_RTOL = 1e-5  # width of a near-tie at a bucket's top-kc boundary
 # group-by (phases 6 and 8): an int64 `grp` field of 50 values, 64 calls of 10 groups x 2
-GRP_VALUES, GRP_COUNT, GRP_TOPK, GRP_Q = 50, 10, 2, 64
+GRP_VALUES, GRP_COUNT, GRP_TOPK, GRP_Q = 50, 10, 2, 32  # 32 calls: the script's time limit
 GRP_ORACLE_K = 1000
-GRP_PLAIN_Q = 16  # plain top-10 queries timed beside the group-by calls
+GRP_PLAIN_Q = 8  # plain top-10 queries timed beside the group-by calls
 # the width of the harvest buffer, as Collection.group_by_query sizes it: the
 # next power of two above max(2 * groups * members, 64), at most 1,024
 GRP_CAP = min(1 << max(6, (2 * GRP_COUNT * GRP_TOPK - 1).bit_length()), 1024)
@@ -246,30 +291,35 @@ SP_RTOL = 1e-5  # card vs CPU: scores, and the width of a near-tie
 FU_N, FU_D, FU_VOCAB, FU_NNZ, FU_Q, FU_SEED = 100_000, 64, 30_000, 24, 64, 7 + 2
 # phase 8, routed traversal: the same graph loaded into engines with an int8
 # and a bf16 route tier
-RT_EFS = (128, 256)
+RT_EFS = (128,)  # one ef: the script's time limit
 RT_MAX_RECALL_LOSS = 0.02  # routed recall@10 at each ef within this of the unrouted beam's
 RT_SCORE_RTOL = 1e-3  # returned scores against the exact fp32 ones, relative
 RT_CHECK_Q = 16  # queries of the routed beam held card against CPU
 # phase tools: phase 4's generator with its rows cut from 1,000,000
-TL_N, TL_GT_Q, TL_EF, TL_BENCH_S = 100_000, 128, 128, 5.0
+TL_N, TL_GT_Q, TL_EF, TL_BENCH_S = 100_000, 64, 128, 2.0  # 64 queries, 2 s a bench: the script's time limit
+# the quantized_groupby example at 1,000 rows and ef_construction 100 on the
+# card and the CPU, as tests/test_torch_examples.py runs it (the script's time limit)
+TL_EX_N, TL_EX_EFC = 1000, 100
 # phase mesh: the collections of phases 4, 6 and 7 reopened under 4 shards
 MESH_SHARDS = 4
 MESH_KNN_K = 127  # the shard builds' candidate pool: what phase 6's 1M layer gets from the size rule
-MESH_HNSW_EFS = (128, 256)
+MESH_HNSW_EFS = (128,)  # one ef: the script's time limit
 MESH_HNSW_SLACK = 0.01  # sharded recall@10 at each ef >= phase 6's unsharded, less this
 MESH_IVF_NPROBE, MESH_IVF_SLACK = 16, 0.001
-MESH_SP_N, MESH_SP_EF, MESH_SP_SLACK = 25_000, 128, 0.02  # phase 9's rows cut to 25,000
+MESH_SP_N, MESH_SP_EF, MESH_SP_SLACK = 12_500, 128, 0.02  # phase 9's rows cut to 12,500
 MESH_CHECK_Q = 16  # queries of the sharded beam held card against CPU
 # phase cohere: benchmarks/bench_cohere10m.py's deployment (the reference's
 # Cohere-10M headline: 768-d, COSINE, INT8 codes, HNSW m=50 efc=500, fp32
-# refine), rows cut from 10,000,000 to 500,000 by the script's time limit (the
-# phase takes ~275 s at VectorDBBench's Performance768D1M size of 1,000,000)
-CO_N, CO_D, CO_NQ = 500_000, 768, 1000
+# refine), rows cut from 10,000,000 to 450,000 by the script's time limit (the
+# phase takes ~275 s at VectorDBBench's Performance768D1M size of 1,000,000;
+# above 400,000 rows the build keeps knn_k 127, so K1)
+CO_N, CO_D, CO_NQ = 450_000, 768, 1000
 CO_NCENTERS, CO_SEED, CO_GEN_BLOCK = 1024, 0xC0EE, 1 << 16
-CO_N_PAD = 500_736  # CO_N rounded up to 1024 rows, as the build pads its scan
+CO_N_PAD = 450_560  # CO_N rounded up to 1024 rows, as the build pads its scan
 CO_Q_BUILD = 1024  # build rows per scan: the build halves its batch at D >= 512
 CO_EFS = (64, 96, 128, 250)
 CO_TOPKS = (1, 10, 50, 100)  # recall@k at ef 250, as the reference reports it
+CO_TOPK_Q = 250  # queries of the top-50 / top-100 batches (the script's time limit)
 # refined recall@10 floors over all 1000 queries. The reference's 10M figure
 # less ~0.006 (0.975 at ef 250) does not hold here: below 2,000,000 rows the
 # size rule takes the exact build (the 10M run took the clustered build), and
@@ -285,8 +335,45 @@ CO_REF_RAW_10M = {96: 0.9069, 250: 0.9406}
 CO_REF_TOPK_10M = {1: 0.986, 10: 0.9809, 50: 0.987, 100: 0.9952}
 CO_CHECK_Q = 16  # queries of the int8 beam held card against CPU
 CO_SCORE_ATOL = 1e-5  # refined scores against the exact cosine distance (float32 sums)
-PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "cohere", "sparse", "fusion", "tools", "mesh")
+# phase live: benchmarks/bench_filtered10m.py's grid on bench_ivf10m.py's fields,
+# run on phase 8's collection (its rows cut as phase 8's), then the collection's
+# write life: deletes, upserts, updates, a writing segment scanned by K1, a crash
+LV_FIELDS_SEED = 0x1F1F  # bench_ivf10m.py's SEED: fields_arrays draws the tags, then the prices
+LV_GID_MOD = 997  # gid = i % 997, bench_filtered10m.py's grouping field
+LV_FILTERS = {  # the grid of bench_filtered10m.py:110-114 (~50%, ~10%, ~1%)
+    "price < 0.5": lambda tag, price: price < 0.5,
+    "tag = 't3'": lambda tag, price: tag == 3,
+    "tag = 't3' AND price < 0.1": lambda tag, price: (tag == 3) & (price < 0.1),
+}
+LV_EFS = (96, 256)
+# recall@10 floors for a filter the graph serves: the reference's 10M figures less ~0.01
+LV_GRAPH_FLOORS = {96: 0.93, 256: 0.96}
+# zvec_tpu on the uncut 10M deployment on its own chip (benchmarks/
+# filtered10m_results.json): recall@10 and the path it named, history only
+LV_REF_10M = {
+    None: {96: (0.9504, "graph_traversal")},
+    "price < 0.5": {96: (0.9426, "graph_traversal"), 256: (0.9723, "graph_traversal")},
+    "tag = 't3'": {96: (0.9996, "brute_force_by_keys"), 256: (0.9996, "brute_force_by_keys")},
+    "tag = 't3' AND price < 0.1": {96: (1.0, "graph_traversal"), 256: (1.0, "graph_traversal")},
+}
+LV_REF_GROUPED_10M = {10: 1.22, 50: 0.32}  # grouped / plain ms at group_count 10 / 50
+LV_GROUP_COUNTS, LV_GROUP_Q, LV_GROUP_REPS = (10, 50), 16, 3  # bench_filtered10m.py:172-194
+LV_SEED = 0x11FE  # the mutations' choices and the new rows
+LV_DELETE, LV_UPSERT, LV_UPDATE, LV_UPDATE_UPSERTED = CL_N // 100, 10_000, 10_000, 2_000
+LV_INSERT, LV_DBF_GID, LV_RYW = 100_000, 5, 1_000
+LV_READER_Q = 64  # the concurrent reader's batch
+LV_RECALL_SLACK = 0.01  # live recall@10 at ef 256 >= leg A's unfiltered figure, less this
+LV_SCORE_RTOL = 1e-5  # a returned score against its pk's live vector, of |q|^2 + |x|^2
+LV_REOPEN_RTOL = 1e-5  # scores after the crash and replay against leg C's
+BF_RATIO, BF_HOST_WORK = 0.1, 1 << 24  # the brute-force-by-keys rule (utils/config.py, collection_impl.py)
+PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "live", "cohere", "sparse", "fusion", "tools", "mesh")
 MESH_NEEDS = ("flat", "hnsw", "ivf")
+LIVE_NEEDS = ("clustered",)
+# the phases after `kernel`, in worker processes that run side by side; a
+# phase that needs another's collection is in its group, after it
+GROUPS = (("flat", "hnsw", "ivf", "mesh"), ("clustered", "live"), ("cohere", "sparse", "fusion", "tools"))
+GROUP_DEADLINE_S = 1100  # since the start: workers still running then are stopped, and the run fails
+PARENT_ENV = "CHIP_SMOKE_PARENT"  # a worker's parent pid: the worker dies with it
 
 
 def log(msg: str) -> None:
@@ -1287,9 +1374,29 @@ def _routed_sweep(engine, path: Path, X: np.ndarray, queries: np.ndarray, exp: n
     torch.cuda.empty_cache()
 
 
-def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
+def live_fields(n: int):
+    """`benchmarks/bench_ivf10m.py::fields_arrays` with its N = n, copied draw
+    for draw (its SEED = 0x1F1F): a tag in 0..9 (`tag = 'tN'` selects ~10%),
+    then a price in [0, 1)."""
+    rng = np.random.default_rng(LV_FIELDS_SEED)
+    tags = rng.integers(0, 10, n)
+    price = rng.random(n)
+    return tags, price
+
+
+def clustered_fresh(n: int, dim: int, count: int, seed: int) -> np.ndarray:
+    """`count` new rows of `make_clustered(n, dim, ...)`'s corpus: the same
+    centres (its first draw), fresh assignments and noise from `seed`."""
+    k = max(32, n // 10_000)
+    centers = np.random.default_rng(1234).standard_normal((k, dim)).astype(np.float32) * 5.0
+    rng = np.random.default_rng(seed)
+    return centers[rng.integers(0, k, count)] + rng.standard_normal((count, dim)).astype(np.float32)
+
+
+def phase_hnsw_clustered(workdir: Path, dev: torch.device, base: dict, keep: bool = False) -> int:
     """The clustered build at CL_N rows, picked by the size rule: build, sweep
-    ef, check the build's pieces card against CPU, reopen."""
+    ef, check the build's pieces card against CPU, reopen. With `keep`, the
+    reopened collection goes on to the live phase (in `base`), open."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
     from zvec_tpu_torch.ops.hnsw import hnsw_search
@@ -1298,9 +1405,15 @@ def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
     X, queries = make_clustered(CL_N, D, nq=Q)
     qset = [np.roll(queries, i, axis=0) for i in range(4)]
     grp = np.random.default_rng(SEED + 3).integers(0, GRP_VALUES, CL_N)
+    tags, price = live_fields(CL_N)  # the live phase's fields, bench_filtered10m.py's
     schema = zt.CollectionSchema(
         "hnsw_clustered",
-        fields=[zt.FieldSchema("grp", zt.DataType.INT64)],
+        fields=[
+            zt.FieldSchema("grp", zt.DataType.INT64),
+            zt.FieldSchema("tag", zt.DataType.STRING, index_param=zt.InvertIndexParam()),
+            zt.FieldSchema("price", zt.DataType.DOUBLE),
+            zt.FieldSchema("gid", zt.DataType.INT32),
+        ],
         vectors=[zt.VectorSchema("vec", zt.DataType.VECTOR_FP32, D,
                                  zt.HnswIndexParam(zt.MetricType.L2, m=50, ef_construction=500))],
     )
@@ -1310,7 +1423,9 @@ def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
     t0 = time.perf_counter()
     col = zt.create_and_open(str(path), schema)
     for lo in range(0, CL_N, 1024):
-        col.insert([zt.Doc(id=str(i), vectors={"vec": X[i]}, fields={"grp": int(grp[i])})
+        col.insert([zt.Doc(id=str(i), vectors={"vec": X[i]},
+                           fields={"grp": int(grp[i]), "tag": f"t{tags[i]}", "price": float(price[i]),
+                                   "gid": i % LV_GID_MOD})
                     for i in range(lo, min(lo + 1024, CL_N))])
     t_insert = time.perf_counter() - t0
     col.optimize()
@@ -1386,14 +1501,444 @@ def phase_hnsw_clustered(workdir: Path, dev: torch.device) -> int:
                                       param=zt.HnswQueryParam(ef=CL_EFS[-1])))
     eng2 = next(s for s in reopened._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
     loaded = eng2._loaded_aux is not None and not eng2.build_times
-    reopened._impl.close()
     if lloyd.calls != calls or not loaded or flat_scan_topk.launches != launches:
         raise AssertionError("hnsw clustered: the reopened collection rebuilt its graph")
     if not (again == ids_by_ef[CL_EFS[-1]]).all():
         raise AssertionError("hnsw clustered: reopened collection returns other ids")
     log("hnsw clustered: reopened collection loads the graph from disk (no k-means, no prune, "
         "no kernel launch) and returns identical ids")
+    if keep:
+        base["clustered"] = dict(col=reopened, X=X, queries=queries, grp=grp, tags=tags, price=price,
+                                 recall256=recalls[256])
+    else:
+        reopened._impl.close()
     return launches
+
+
+def _live_branches(profile: str) -> dict:
+    """Per segment id, the branch a query batch took, from its profile:
+    `index` (the segment's engine: the HNSW beam of a sealed segment, the flat
+    scan of the writing one; stage `vector_scan`), `device scan` (brute force
+    by keys: the whole segment scanned with is_linear, stage `bf_by_keys`) or
+    `host exact` (a filtered segment with neither stage: `_exact_over_rows`)."""
+    names = {"filter": "host exact", "vector_scan": "index", "bf_by_keys": "device scan"}
+    out = {}
+
+    def walk(node):
+        kind, _, seg = node["stage"].partition(" ")
+        if kind in names and out.get(seg) in (None, "host exact"):
+            out[seg] = names[kind]
+        for child in node.get("children", []):
+            walk(child)
+
+    walk(json.loads(profile))
+    return out
+
+
+def _rule_branch(n_rows: int, n_alive: int, nq: int, filtered: bool) -> str:
+    """The branch the brute-force-by-keys rule (`_query_field_dispatch`) must
+    pick for a segment of n_rows rows of which n_alive pass the filter."""
+    if not filtered or n_alive > max(1, int(BF_RATIO * n_rows)):
+        return "index"
+    return "host exact" if nq * n_alive * D <= BF_HOST_WORK else "device scan"
+
+
+def _live_oracle(vd: torch.Tensor, rows: np.ndarray, qd: torch.Tensor):
+    """Exact L2 top-(K + 1) on the card over the rows `rows` of vd: (pks of
+    the top-K, near-tie flags at the K-th row)."""
+    if len(rows) <= K:
+        raise AssertionError("live: a filter keeps fewer than 11 rows")
+    s, i = _exact_oracle(vd[torch.from_numpy(rows).to(vd.device)], qd)
+    d = -s.cpu().numpy()  # squared L2 distances, ascending
+    near_tie = np.abs(d[:, K - 1] - d[:, K]) <= TIE_RTOL * np.abs(d[:, K - 1])
+    return rows[i[:, :K].cpu().numpy()], near_tie
+
+
+def _live_answers(docs, qs: np.ndarray, live_vec: np.ndarray, ok: np.ndarray, label: str):
+    """Every returned (pk, score) of a batch is a pk that `ok` admits (alive,
+    and passing the filter on its live fields) scored against its live vector
+    (no deleted pk, no superseded version). Returns (ids, scores, max error)."""
+    ids = np.array([[int(d.id) for d in row] for row in docs], np.int64)
+    sc = np.array([[d.score for d in row] for row in docs], np.float64)
+    if ids.shape != (len(qs), K) or (ids < 0).any() or not np.isfinite(sc).all():
+        raise AssertionError(f"live {label}: results are not ({len(qs)}, {K}) finite scores")
+    if not ok[ids].all():
+        raise AssertionError(f"live {label}: {int((~ok[ids]).sum())} results are deleted pks or fail the filter")
+    v = live_vec[ids].astype(np.float64)
+    q = qs.astype(np.float64)[:, None, :]
+    exact = ((v - q) ** 2).sum(-1)
+    scale = (v * v).sum(-1) + (q * q).sum(-1)
+    err = np.abs(sc - exact)
+    if (err > LV_SCORE_RTOL * scale).any():
+        raise AssertionError(f"live {label}: {int((err > LV_SCORE_RTOL * scale).sum())} scores are not "
+                             f"their pk's live vector's (a superseded version)")
+    return ids, sc, float(err.max())
+
+
+def _live_recall(ids: np.ndarray, exp: np.ndarray, near_tie: np.ndarray):
+    short = np.array([len(set(ids[r]) & set(exp[r])) < K for r in range(len(ids))])
+    return _recall(ids, exp), int(short.sum()), int((short & ~near_tie).sum())
+
+
+def _k1_at_writing_shape(engine, alive: np.ndarray, fmask: np.ndarray, queries: np.ndarray) -> dict:
+    """K1 against its plain version on the writing segment's own device codes
+    (its FlatEngine state), with its live delete mask and with that mask and a
+    filter's: stage one and the final top-K under phase 3's tolerances, then
+    the times with bound and the torch.matmul yardstick (live mask)."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+    from zvec_tpu_torch.typing import MetricType
+
+    st = engine._st
+    dev = st.codes.device
+    q = torch.from_numpy(queries).to(dev)
+    out = None
+    for label, m in (("live mask", alive), ("live mask and filter", alive & fmask)):
+        mask = torch.zeros(st.n_pad, dtype=torch.int8, device=dev)
+        mask[: st.n] = torch.from_numpy(m[: st.n].astype(np.int8)).to(dev)
+        kw = dict(metric=MetricType.L2, topk=K)
+        args = (q, st.codes, st.norms, mask)
+        ts_k, ti_k = fs.flat_scan_stage1(*args, **kw)
+        ts_p, ti_p = fs.flat_scan_stage1(*args, plain=True, **kw)
+        torch.cuda.synchronize()
+        s1_err = float((ts_k - ts_p).abs().max())
+        s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
+        swaps = float((ti_k != ti_p).float().mean())
+        ks, ki = fs.flat_scan_topk(*args, **kw)
+        ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
+        bad, differ, final_err = _check_final(ks, ki, ps, pi)
+        finite = bool(torch.isfinite(ks).all()) and bool((ki >= 0).all())
+        if label == "live mask":
+            bound = _bound(q.shape[0], st.n_pad, D, K, fs.pick_tile(st.n_pad, K), st.codes)
+            lib_ms = _library_ms(q, st.codes)
+            k_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **kw))
+            p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **kw))
+            kf_ms = time_ms(lambda: fs.flat_scan_topk(*args, **kw))
+            pf_ms = time_ms(lambda: fs.flat_scan_topk_plain(*args, **kw))
+            out = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, full_ms=kf_ms, full_plain_ms=pf_ms,
+                       bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
+                       roofline=bound["bound_ms"] / k_ms)
+            times = (f"; stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; full scan {kf_ms:.3f} ms vs plain "
+                     f"{pf_ms:.3f} ms; " + _bound_text(bound, k_ms, lib_ms))
+        else:
+            times = ""
+        log(f"live kernel writing segment fp32 L2 N={st.n_pad} ({st.n} rows, {int(m[: st.n].sum())} "
+            f"{label}) D={D} Q={q.shape[0]} k={K}: stage1 max|dkey| {s1_err:.3g} id swaps {swaps:.2e}; "
+            f"final rows differing {differ} (outside ties {bad}) max|dscore| {final_err:.3g}" + times)
+        if not (s1_ok and swaps <= STAGE1_MAX_ID_SWAPS and bad == 0 and finite):
+            raise AssertionError(f"live: the kernel disagrees with its plain version ({label})")
+    return out
+
+
+def phase_live(dev: torch.device, base: dict) -> tuple:
+    """The live, filtered collection on phase 8's collection (the reopened
+    one, 2.1M rows with tag / price / gid): A. the filter grid with the path
+    each filter took; B. group-by on gid; C. deletes, delete_by_filter,
+    upserts, updates and 100,000 inserts into the writing segment (which K1
+    then scans), checked against a plain reference of the live collection;
+    D. a reader thread querying while C's inserts run; E. a crash (the impl
+    closed without a flush) and the WAL replay at open. Returns (K1 launches
+    in the phase, K1 against its plain version at the writing segment's
+    shape)."""
+    import threading
+
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.core.flat import kernel_takes
+    from zvec_tpu_torch.db.collection_impl import CollectionImpl
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.ops.kmeans import lloyd
+
+    cl = base.pop("clustered")
+    col = cl.pop("col")
+    X, queries, grp, tags, price = cl["X"], cl["queries"], cl["grp"], cl["tags"], cl["price"]
+    n = X.shape[0]
+    n_all = n + LV_INSERT
+    flat_scan_topk.launches = 0
+    sealed_id = f"seg_{col._impl.segments[0].meta.segment_id}"
+    qd = torch.from_numpy(queries).to(dev)
+
+    # ---- A. the filter grid ----
+    xd = torch.from_numpy(X).to(dev)
+    profiled = False
+    for flt in (None,) + tuple(LV_FILTERS):
+        sel = np.ones(n, bool) if flt is None else LV_FILTERS[flt](tags, price)
+        rows = np.flatnonzero(sel)
+        exp, near_tie = _live_oracle(xd, rows, qd)
+        want = _rule_branch(n, len(rows), Q, flt is not None)
+        for ef in LV_EFS:
+            param = zt.HnswQueryParam(ef=ef)
+            col._impl.debug_profiling = True
+            docs = col.batch_query("vec", queries, topk=K, filter=flt, output_fields=[], param=param)
+            path = _live_branches(col._impl.last_profile)
+            col._impl.debug_profiling = False
+            t0 = time.perf_counter()
+            col.batch_query("vec", queries, topk=K, filter=flt, output_fields=[], param=param)
+            ms = (time.perf_counter() - t0) * 1e3
+            ids = _ids(docs)
+            if flt is not None and not sel[ids].all():
+                raise AssertionError(f"live A: {flt!r} returned rows that fail the filter")
+            rec, short, bad = _live_recall(ids, exp, near_tie)
+            ref = LV_REF_10M.get(flt, {}).get(ef)
+            log(f"live A: filter {flt!r} (selectivity {len(rows) / n:.4f}, {len(rows)} rows) ef={ef}: "
+                f"recall@{K} {rec:.4f} ({short} rows short, {bad} outside near-ties), {ms:.2f} ms per "
+                f"{Q}-query batch (after one warm batch); path {path.get(sealed_id)} (the rule: {want}); "
+                f"zvec_tpu at 10M: " + ("none" if ref is None else f"{ref[0]} ({ref[1]})"))
+            if path.get(sealed_id) != want:
+                raise AssertionError(f"live A: {flt!r} took {path.get(sealed_id)}, the rule says {want}")
+            if ef == LV_EFS[0]:
+                # one query, as bench_filtered10m.py reads the path: with Q = 1 a
+                # demoted filter of at most 2^24 / D rows takes the host exact branch
+                col._impl.debug_profiling = True
+                one = col.query(zt.VectorQuery("vec", vector=queries[0], param=param), topk=K, filter=flt,
+                                output_fields=[])
+                one_path = _live_branches(col._impl.last_profile)
+                col._impl.debug_profiling = False
+                one_want = _rule_branch(n, len(rows), 1, flt is not None)
+                one_rec, _, one_bad = _live_recall(_ids([one]), exp[:1], near_tie[:1])
+                log(f"live A: filter {flt!r}, one query: recall@{K} {one_rec:.4f}; path "
+                    f"{one_path.get(sealed_id)} (the rule: {one_want})")
+                if one_path.get(sealed_id) != one_want or (one_want != "index" and one_bad):
+                    raise AssertionError(f"live A: {flt!r} for one query took {one_path.get(sealed_id)} "
+                                         f"(the rule: {one_want}) or read below 1.0")
+            if want == "device scan" and not profiled:
+                profiled = True
+                _profiled(f"live A: filter {flt!r}, the device scan ({Q} queries)",
+                          lambda: col.batch_query("vec", queries, topk=K, filter=flt, output_fields=[], param=param))
+            if flt is not None and want != "index" and bad:
+                raise AssertionError(f"live A: the demoted filter {flt!r} reads below 1.0 outside near-ties")
+            if flt is not None and want == "index" and rec < LV_GRAPH_FLOORS[ef]:
+                raise AssertionError(f"live A: {flt!r} at ef={ef} reads {rec:.4f} < {LV_GRAPH_FLOORS[ef]}")
+    del xd
+    torch.cuda.empty_cache()
+
+    # ---- B. group-by on gid ----
+    for gc_ in LV_GROUP_COUNTS:
+        times = []
+        for _ in range(LV_GROUP_REPS):
+            t0 = time.perf_counter()
+            for i in range(LV_GROUP_Q):
+                docs = col.group_by_query(zt.VectorQuery("vec", vector=queries[i]), group_by_field="gid",
+                                          group_count=gc_, group_topk=2, output_fields=["gid"])
+                groups: dict = {}
+                for d in docs:
+                    groups.setdefault(int(d.fields["gid"]), []).append(int(d.id))
+                if len(groups) != gc_ or any(len(v) > 2 for v in groups.values()) or any(
+                        int(i) % LV_GID_MOD != g for g, v in groups.items() for i in v):
+                    raise AssertionError(f"live B: group_count={gc_}: wrong groups or members")
+            times.append((time.perf_counter() - t0) / LV_GROUP_Q)
+        t0 = time.perf_counter()
+        for i in range(LV_GROUP_Q):
+            col.query(zt.VectorQuery("vec", vector=queries[i]), topk=gc_ * 2, output_fields=[])
+        plain = (time.perf_counter() - t0) / LV_GROUP_Q
+        grouped = statistics.median(times)
+        log(f"live B: group_by_query gid (997 values) group_count={gc_} group_topk=2 on {LV_GROUP_Q} "
+            f"queries, {LV_GROUP_REPS} repeats: {grouped * 1e3:.2f} ms per call (median), a plain "
+            f"top-{gc_ * 2} query {plain * 1e3:.2f} ms, ratio {grouped / plain:.2f} (zvec_tpu at 10M: "
+            f"{LV_REF_GROUPED_10M[gc_]}); every group <= 2 docs of one gid")
+
+    # ---- C. mutations, and D. a reader while the inserts run ----
+    rng = np.random.default_rng(LV_SEED)
+    live_vec = np.concatenate([X, clustered_fresh(n, D, LV_INSERT, LV_SEED + 1)])
+    fresh = clustered_fresh(n, D, LV_UPSERT, LV_SEED + 2)
+    l_tags = np.concatenate([tags, rng.integers(0, 10, LV_INSERT)])
+    l_price = np.concatenate([price, rng.random(LV_INSERT)])
+    l_grp = np.concatenate([grp, rng.integers(0, GRP_VALUES, LV_INSERT)])
+
+    def fields(i):  # pk i's fields as the reference holds them now
+        return {"grp": int(l_grp[i]), "tag": f"t{l_tags[i]}", "price": float(l_price[i]), "gid": int(i % LV_GID_MOD)}
+
+    def written(statuses, what):
+        bad = [st for st in statuses if not st.is_ok()]
+        if bad:
+            raise AssertionError(f"live C: {len(bad)} of {len(statuses)} {what} failed: {bad[0]}")
+    alive = np.zeros(n_all, bool)
+    alive[:n] = True
+    pks = np.arange(n_all)
+    t0 = time.perf_counter()
+    deleted = np.sort(rng.choice(n, LV_DELETE, replace=False))
+    for lo in range(0, LV_DELETE, 1024):
+        written(col.delete([str(i) for i in deleted[lo : lo + 1024]]), "deletes")
+    alive[deleted] = False
+    t_del = time.perf_counter()
+    col.delete_by_filter(f"gid = {LV_DBF_GID}")
+    dbf = np.flatnonzero(pks[:n] % LV_GID_MOD == LV_DBF_GID)
+    alive[dbf] = False
+    gone = np.flatnonzero(~alive[:n])
+    t_dbf = time.perf_counter()
+    upserted = np.sort(rng.choice(np.flatnonzero(alive[:n]), LV_UPSERT, replace=False))
+    for lo in range(0, LV_UPSERT, 1024):
+        written(col.upsert([zt.Doc(id=str(i), vectors={"vec": fresh[lo + j]}, fields=fields(i))
+                            for j, i in enumerate(upserted[lo : lo + 1024])]), "upserts")
+    live_vec[upserted] = fresh
+    t_ups = time.perf_counter()
+    others = np.setdiff1d(np.flatnonzero(alive[:n]), upserted)
+    updated = np.sort(np.concatenate([rng.choice(others, LV_UPDATE - LV_UPDATE_UPSERTED, replace=False),
+                                      rng.choice(upserted, LV_UPDATE_UPSERTED, replace=False)]))
+    for lo in range(0, LV_UPDATE, 1024):
+        written(col.update([zt.Doc(id=str(i), fields={"price": 0.05}) for i in updated[lo : lo + 1024]]),
+                "updates")
+    l_price[updated] = 0.05
+    t_upd = time.perf_counter()
+
+    stop, errors, reader = threading.Event(), [], dict(batches=0, leaks=0)
+    rq = queries[:LV_READER_Q]
+
+    def read():
+        try:
+            while not stop.is_set():
+                docs = col.batch_query("vec", rq, topk=K, output_fields=[], param=zt.HnswQueryParam(ef=96))
+                reader["leaks"] += int(np.isin(_ids(docs), gone).sum())
+                reader["batches"] += 1
+        except BaseException as exc:  # noqa: BLE001  (reported by the main thread)
+            errors.append(exc)
+
+    thread = threading.Thread(target=read)
+    thread.start()
+    new = np.arange(n, n_all)
+    try:
+        for lo in range(0, LV_INSERT, 1024):
+            written(col.insert([zt.Doc(id=str(i), vectors={"vec": live_vec[i]}, fields=fields(i))
+                                for i in new[lo : lo + 1024]]), "inserts")
+    finally:
+        stop.set()
+        thread.join()
+    alive[new] = True
+    t_ins = time.perf_counter()
+    log(f"live C: delete {LV_DELETE} pks {t_del - t0:.2f} s, delete_by_filter 'gid = {LV_DBF_GID}' "
+        f"({len(dbf)} rows) {t_dbf - t_del:.2f} s, upsert {LV_UPSERT} {t_ups - t_dbf:.2f} s, update "
+        f"{LV_UPDATE} prices to 0.05 ({LV_UPDATE_UPSERTED} of them upserted) {t_upd - t_ups:.2f} s, insert "
+        f"{LV_INSERT} {t_ins - t_upd:.2f} s")
+    log(f"live D: a reader thread ran {reader['batches']} batch_query calls of {LV_READER_Q} queries "
+        f"(ef 96) during the inserts; errors {len(errors)}, deleted pks returned {reader['leaks']}")
+    if errors:
+        raise AssertionError(f"live D: the reader raised {errors[0]!r}") from errors[0]
+    if reader["leaks"] or not reader["batches"]:
+        raise AssertionError("live D: the reader returned deleted pks, or ran no batch")
+
+    impl = col._impl
+    writing = impl.writing
+    weng = writing.engine_for("vec")
+    w_alive = impl.deletes.alive_mask(writing.doc_id_start, writing.doc_count)
+    count = col.stats.doc_count
+    log(f"live C: doc count {count} (reference {int(alive.sum())}); sealed {impl.segments[0].doc_count} rows, "
+        f"writing segment {writing.doc_count} rows ({int((~w_alive).sum())} deleted), its engine on "
+        f"{weng._st.codes.device}, K1 takes its scan: {kernel_takes(weng._st.codes, None, weng._st.n, K)}")
+    if count != int(alive.sum()):
+        raise AssertionError("live C: the doc count is not the reference's")
+    if not (weng._st.codes.device.type == dev.type and kernel_takes(weng._st.codes, None, weng._st.n, K)):
+        raise AssertionError("live C: the writing segment's scan is not K1's")
+    # which rows each segment holds: the writing segment has the upserts, the
+    # updates and the inserts, in that order; an upserted pk updated later
+    # left a dead row there
+    w_pks = np.concatenate([upserted, updated, new])
+    if writing.doc_count != len(w_pks):
+        raise AssertionError(f"live C: the writing segment holds {writing.doc_count} rows, not {len(w_pks)}")
+    in_writing = np.zeros(n_all, bool)
+    in_writing[w_pks] = True
+    seg_rows = {sealed_id: (n, alive & ~in_writing), f"seg_{writing.meta.segment_id}": (writing.doc_count, in_writing)}
+    lv = torch.from_numpy(live_vec[alive]).to(dev)
+    live_rows = np.flatnonzero(alive)
+    batches = {}
+    param = zt.HnswQueryParam(ef=LV_EFS[-1])
+    for flt in (None,) + tuple(LV_FILTERS):
+        ok = alive if flt is None else alive & LV_FILTERS[flt](l_tags, l_price)
+        sub = np.flatnonzero(ok[live_rows])
+        exp, near_tie = _live_oracle(lv, sub, qd)
+        exp = live_rows[exp]
+        want = {s: _rule_branch(nr, int((ok & m).sum()), Q, flt is not None) for s, (nr, m) in seg_rows.items()}
+        col._impl.debug_profiling = True
+        docs = col.batch_query("vec", queries, topk=K, filter=flt, output_fields=[], param=param)
+        path = _live_branches(col._impl.last_profile)
+        col._impl.debug_profiling = False
+        ids, sc, err = _live_answers(docs, queries, live_vec, ok, f"C {flt!r}")
+        batches[flt] = (ids, sc)
+        if flt is None:
+            _profiled(f"live C: unfiltered ef={LV_EFS[-1]}, the masked beam and K1 on the writing segment "
+                      f"({Q} queries)", lambda: col.batch_query("vec", queries, topk=K, output_fields=[], param=param))
+        rec, short, bad = _live_recall(ids, exp, near_tie)
+        log(f"live C: filter {flt!r} after the mutations ({int(ok.sum())} live rows) ef={LV_EFS[-1]}: recall@{K} "
+            f"{rec:.4f} against the live oracle ({short} rows short, {bad} outside near-ties); paths "
+            + ", ".join(f"{s} {path.get(s)} (the rule: {w})" for s, w in want.items())
+            + f"; no deleted pk and no superseded version (max |score - live vector's| {err:.3g})")
+        if path != want:
+            raise AssertionError(f"live C: {flt!r} took {path}, the rule says {want}")
+        if flt is None and rec < cl["recall256"] - LV_RECALL_SLACK:
+            raise AssertionError(f"live C: recall@10 {rec:.4f} is more than {LV_RECALL_SLACK} under "
+                                 f"the unmutated {cl['recall256']:.4f}")
+        if flt is not None and want[sealed_id] != "index" and bad:
+            raise AssertionError(f"live C: the demoted filter {flt!r} reads below 1.0 outside near-ties")
+        if flt is not None and want[sealed_id] == "index" and rec < LV_GRAPH_FLOORS[LV_EFS[-1]]:
+            raise AssertionError(f"live C: {flt!r} reads {rec:.4f} < {LV_GRAPH_FLOORS[LV_EFS[-1]]}")
+    del lv
+    torch.cuda.empty_cache()
+    for label, rows in (("new docs", new), ("upserted docs", upserted)):
+        pick = np.sort(rng.choice(rows, LV_RYW, replace=False))
+        qs = live_vec[pick]
+        docs = col.batch_query("vec", qs, topk=K, output_fields=[], param=param)
+        ids, sc, err = _live_answers(docs, qs, live_vec, alive, f"C read-your-writes {label}")
+        first = int((ids[:, 0] == pick).sum())
+        log(f"live C: read-your-writes, {LV_RYW} {label} queried by their own vectors: {first} at rank 1, "
+            f"max |score| {float(np.abs(sc[:, 0]).max()):.3g} (exact 0), max |score - live vector's| {err:.3g}")
+        if first != LV_RYW:
+            raise AssertionError(f"live C: {LV_RYW - first} {label} are not their own nearest")
+    launches = flat_scan_topk.launches
+    log(f"live C: K1 launches in the phase so far {launches} (the writing segment's scans)")
+    if launches == 0:
+        raise AssertionError("live C: K1 never scanned the writing segment")
+    fmask = LV_FILTERS["tag = 't3' AND price < 0.1"](l_tags[w_pks], l_price[w_pks])
+    k1_case = _k1_at_writing_shape(weng, w_alive, fmask, queries)
+    flat_scan_topk.launches = launches  # the checks' launches are not the path's
+
+    # ---- E. a crash and the WAL replay ----
+    path = impl.path
+    impl.close()
+    del col, impl, writing, weng
+    gc.collect()
+    torch.cuda.empty_cache()
+    replay = {}
+    orig = CollectionImpl._replay_wal
+
+    def timed(self, seg):
+        t = time.perf_counter()
+        orig(self, seg)
+        replay["s"] = time.perf_counter() - t
+
+    calls = lloyd.calls
+    CollectionImpl._replay_wal = timed
+    try:
+        t0 = time.perf_counter()
+        col = zt.open(path)
+        t_open = time.perf_counter() - t0
+    finally:
+        CollectionImpl._replay_wal = orig
+    seng = col._impl.segments[0].engine_for("vec")
+    seng._ensure_fresh()
+    weng = col._impl.writing.engine_for("vec")
+    weng._ensure_fresh()
+    t_load = time.perf_counter() - t0
+    loaded = seng._loaded_aux is not None and not seng.build_times
+    log(f"live E: crash (closed without a flush) and open: {t_open:.2f} s, of which the WAL replay "
+        f"{replay.get('s', float('nan')):.2f} s; with the engines loaded {t_load:.2f} s (graph from its "
+        f"file: {loaded}, K1 launches {flat_scan_topk.launches - launches}, lloyd calls {lloyd.calls - calls}; "
+        f"writing segment {col._impl.writing.doc_count} rows, its engine on {weng._st.codes.device}); doc "
+        f"count {col.stats.doc_count}")
+    if not loaded or flat_scan_topk.launches != launches or lloyd.calls != calls:
+        raise AssertionError("live E: the reopen built an index or launched K1")
+    if weng._st.codes.device.type != dev.type or col._impl.writing.doc_count != len(w_pks):
+        raise AssertionError("live E: the replayed writing segment is not the one written, on the card")
+    if col.stats.doc_count != count:
+        raise AssertionError("live E: the doc count changed across the crash")
+    worst = 0.0
+    for flt, (ids, sc) in batches.items():
+        docs = col.batch_query("vec", queries, topk=K, filter=flt, output_fields=[], param=param)
+        ids2 = _ids(docs)
+        sc2 = np.array([[d.score for d in row] for row in docs], np.float64)
+        worst = max(worst, float(np.abs(sc2 - sc).max()))
+        if not (ids2 == ids).all() or (np.abs(sc2 - sc) > LV_REOPEN_RTOL * np.maximum(np.abs(sc), 1.0)).any():
+            raise AssertionError(f"live E: {flt!r} answers otherwise after the replay")
+    log(f"live E: leg C's four batches return identical ids after the replay, max |dscore| {worst:.3g}")
+    col._impl.close()
+    log(f"live: K1 launches in the phase {flat_scan_topk.launches} (the writing segment's scans)")
+    return flat_scan_topk.launches, k1_case
 
 
 def cohere_centers() -> np.ndarray:
@@ -1443,19 +1988,8 @@ def _cosine_oracle(xd: torch.Tensor, qd: torch.Tensor, k: int):
     return torch.cat(best_s).cpu().numpy(), torch.cat(best_i).cpu().numpy()
 
 
-def phase_cohere(workdir: Path, dev: torch.device) -> tuple:
-    """bench_cohere10m.py's deployment at CO_N rows through the public API:
-    build (the exact build, K1 at D = 768), K1 against its plain version at
-    that shape, the refined and unrefined sweeps against the exact oracle,
-    recall@k at ef 250, the int8 beam card against CPU, reopen. Returns (K1
-    launches in the build, K1's figures at the D = 768 build shape)."""
-    import zvec_tpu_torch as zt
-    import zvec_tpu_torch.core.hnsw as core_hnsw
-    from zvec_tpu_torch.ops import flat_scan as fs
-    from zvec_tpu_torch.ops.hnsw import hnsw_search
-    from zvec_tpu_torch.typing import QuantizeType
-
-    t0 = time.perf_counter()
+def cohere_corpus():
+    """The deployment's CO_N rows and CO_NQ queries, from the copied generator."""
     centers = cohere_centers()
     # one generator block per thread (numpy's generators and ufuncs release the
     # GIL); any window gives the same rows, so this equals one serial call
@@ -1466,7 +2000,41 @@ def phase_cohere(workdir: Path, dev: torch.device) -> tuple:
 
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
         list(pool.map(fill, range(0, CO_N, CO_GEN_BLOCK)))
-    queries = cohere_queries(centers)
+    return X, cohere_queries(centers)
+
+
+def phase_kernel_cohere_shape() -> dict:
+    """K1 where the Cohere build calls it, on the deployment's own rows: 1024
+    code rows a scan, k 128, fp32 COSINE at D = 768 (taken here, alone on the
+    card, for its times)."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    dev = torch.device("cuda")
+    X, _ = cohere_corpus()
+    x = torch.zeros((CO_N_PAD, CO_D), device=dev)
+    x[:CO_N] = torch.from_numpy(X).to(dev)
+    mask = (torch.arange(CO_N_PAD, device=dev) < CO_N).to(torch.int8)
+    q = x[:CO_Q_BUILD].contiguous()
+    bound = _bound(CO_Q_BUILD, CO_N_PAD, CO_D, K_BUILD, fs.pick_tile(CO_N_PAD, K_BUILD), x)
+    k1 = _k1_at_build_shape(x, mask, q, x.norm(dim=1), "COSINE", "cohere build shape", bound,
+                            _library_ms(q, x))
+    del x, mask, q
+    return k1
+
+
+def phase_cohere(workdir: Path, dev: torch.device) -> int:
+    """bench_cohere10m.py's deployment at CO_N rows through the public API:
+    build (the exact build, K1 at D = 768), the refined and unrefined sweeps
+    against the exact oracle, recall@k at ef 250, the int8 beam card against
+    CPU, reopen. Returns K1's launches in the build."""
+    import zvec_tpu_torch as zt
+    import zvec_tpu_torch.core.hnsw as core_hnsw
+    from zvec_tpu_torch.ops import flat_scan as fs
+    from zvec_tpu_torch.ops.hnsw import hnsw_search
+    from zvec_tpu_torch.typing import QuantizeType
+
+    t0 = time.perf_counter()
+    X, queries = cohere_corpus()
     log(f"cohere: {CO_N} x {CO_D} unit-norm rows ({CO_NCENTERS} centres x 2.0, seed {CO_SEED:#x}) and "
         f"{CO_NQ} queries made in {time.perf_counter() - t0:.2f} s")
     schema = zt.CollectionSchema("cohere", vectors=[zt.VectorSchema(
@@ -1506,16 +2074,9 @@ def phase_cohere(workdir: Path, dev: torch.device) -> tuple:
     if launches == 0:
         raise AssertionError("cohere: the build never launched the flat-scan kernel")
 
-    # K1 where the build called it: 1024 code rows a scan, k 128, fp32 COSINE
-    x = torch.zeros((CO_N_PAD, CO_D), device=dev)
-    x[:CO_N] = torch.from_numpy(X).to(dev)
-    mask = (torch.arange(CO_N_PAD, device=dev) < CO_N).to(torch.int8)
-    q = x[:CO_Q_BUILD].contiguous()
-    bound = _bound(CO_Q_BUILD, CO_N_PAD, CO_D, K_BUILD, fs.pick_tile(CO_N_PAD, K_BUILD), x)
-    k1 = _k1_at_build_shape(x, mask, q, x.norm(dim=1), "COSINE", "cohere build shape", bound,
-                            _library_ms(q, x))
-    gs, gi = _cosine_oracle(x[:CO_N], torch.from_numpy(queries).to(dev), max(CO_TOPKS) + 1)
-    del x, mask, q
+    xd = torch.from_numpy(X).to(dev)
+    gs, gi = _cosine_oracle(xd, torch.from_numpy(queries).to(dev), max(CO_TOPKS) + 1)
+    del xd
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1593,11 +2154,12 @@ def phase_cohere(workdir: Path, dev: torch.device) -> tuple:
 
     param = zt.HnswQueryParam(ef=top)
     for tk in CO_TOPKS:
+        qs = queries if tk <= K else queries[:CO_TOPK_Q]
         t1 = time.perf_counter()
-        got = _ids(col.batch_query("vec", queries, topk=tk, output_fields=[], param=param))
+        got = _ids(col.batch_query("vec", qs, topk=tk, output_fields=[], param=param))
         dt = time.perf_counter() - t1
-        log(f"cohere: ef={top} top-{tk}: recall@{tk} {_recall(got, gi[:, :tk]):.4f} (zvec_tpu at 10M "
-            f"rows: {CO_REF_TOPK_10M[tk]}), {dt * 1e3:.2f} ms for the batch (first call)")
+        log(f"cohere: ef={top} top-{tk}: recall@{tk} {_recall(got, gi[: len(qs), :tk]):.4f} on {len(qs)} "
+            f"queries (zvec_tpu at 10M rows: {CO_REF_TOPK_10M[tk]}), {dt * 1e3:.2f} ms for the batch (first call)")
     _profiled(f"cohere batch ef=128, refine on ({CO_NQ} queries)",
               lambda: engine.search(queries, K, None, zt.HnswQueryParam(ef=128)))
     _beam_check(engine, queries[:CO_CHECK_Q], "cohere int8")
@@ -1624,7 +2186,7 @@ def phase_cohere(workdir: Path, dev: torch.device) -> tuple:
         raise AssertionError("cohere: reopened collection returns other ids")
     log(f"cohere: reopened collection loads the graph from disk (no kernel launch) and returns "
         f"identical ids at ef=128; open + first batch {t_reopen:.2f} s")
-    return launches, k1
+    return launches
 
 
 def sparse_topic_model():
@@ -1833,7 +2395,7 @@ def phase_sparse(workdir: Path, dev: torch.device) -> int:
         param = zt.HnswQueryParam(ef=ef)
         first = col.batch_query("sv", qdicts, topk=K, output_fields=[], param=param)
         times = []
-        for _ in range(5):
+        for _ in range(3):
             t1 = time.perf_counter()
             out = col.batch_query("sv", qdicts, topk=K, output_fields=[], param=param)
             times.append(time.perf_counter() - t1)
@@ -1846,7 +2408,7 @@ def phase_sparse(workdir: Path, dev: torch.device) -> int:
         rec_out = _recall(got[:SP_GT_Q][~covered], exp[~covered])
         covered_recalls[ef] = rec_in
         med = statistics.median(times)
-        log(f"sparse: ef={ef}: {med * 1e3:.2f} ms per 1024-query batch (median of 5, "
+        log(f"sparse: ef={ef}: {med * 1e3:.2f} ms per 1024-query batch (median of 3, "
             f"{min(times) * 1e3:.2f} to {max(times) * 1e3:.2f}), {Q / med:.1f} qps; "
             f"{hnsw_sparse_search.last_steps} beam steps in the last batch; recall@{K} "
             f"{recalls[ef]:.4f} on {SP_GT_Q} queries ({rec_in:.4f} where the topic holds an entry, "
@@ -2026,10 +2588,13 @@ def _run_tool(mod, argv) -> dict:
 
 # the CPU run of the examples, in a process that asks for the CPU and sees no card
 _EXAMPLES_ON_CPU = (
-    "import json\n"
+    "import functools, json\n"
+    "import zvec_tpu_torch as zt\n"
     "from zvec_tpu_torch.ops.runtime import device\n"
     "from zvec_tpu_torch.examples import hybrid_multivector, quantized_groupby, quickstart\n"
     "assert device().type == 'cpu'\n"
+    f"quantized_groupby.N = {TL_EX_N}\n"
+    f"quantized_groupby.HnswIndexParam = functools.partial(zt.HnswIndexParam, ef_construction={TL_EX_EFC})\n"
     "print(json.dumps({m.__name__.rsplit('.', 1)[1]: m.main() "
     "for m in (quickstart, hybrid_multivector, quantized_groupby)}))\n"
 )
@@ -2115,6 +2680,8 @@ def phase_tools(workdir: Path, dev: torch.device) -> int:
     env = dict(os.environ, ZVEC_TORCH_DEVICE="cpu", CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     proc = subprocess.Popen([sys.executable, "-c", _EXAMPLES_ON_CPU], cwd=REPO, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    quantized_groupby.N = TL_EX_N
+    quantized_groupby.HnswIndexParam = functools.partial(zt.HnswIndexParam, ef_construction=TL_EX_EFC)
     try:
         card, secs = {}, {}
         for mod in (quickstart, hybrid_multivector, quantized_groupby):
@@ -2185,7 +2752,7 @@ def _mesh_beam_check(engine, qs: np.ndarray, ef: int) -> None:
 def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
     """The collections of phases 4, 6 and 7 reopened under MESH_SHARDS shards
     (GlobalConfig.mesh_devices, as the JAX package's dryrun turns its mesh
-    on), after graft_entry.dryrun_multichip; then the sparse engines on 25,000
+    on), after graft_entry.dryrun_multichip; then the sparse engines on 12,500
     of phase 9's documents. `base` holds what the unsharded phases read.
     Returns K1's launches on the sharded FLAT queries
     and on the sharded HNSW build."""
@@ -2343,7 +2910,7 @@ def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # ---- sparse: 25,000 of phase 9's documents, its widths kept ----
+        # ---- sparse: 12,500 of phase 9's documents, its widths kept ----
         pools = sparse_topic_model()
         idx, val = sparse_make_rows(pools, MESH_SP_N, SP_NNZ_DOC, SP_SEED + 1)
         dicts = sparse_rows_to_dicts(idx, val)
@@ -2396,86 +2963,188 @@ def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
     return launches
 
 
+def _lap_printer(label: str):
+    """lap(name) prints a phase's wall seconds since the last lap, for the time limit."""
+    t_run = time.perf_counter()
+    mark = [t_run]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - mark[0]:.1f} s ({now - t_run:.1f} s since {label})")
+        mark[0] = now
+
+    return lap
+
+
+def run_group(phases: tuple, workdir: Path) -> dict:
+    """One group's phases, one after another in this process: their launch
+    counts by path and the K1 cases they measured."""
+    lap = _lap_printer("the worker's start")
+    dev = torch.device("cuda")
+    launches, cases = {}, {}
+    base = {}  # what the unsharded phases 4, 6 and 7 read, for the mesh phase
+    if "flat" in phases or "hnsw" in phases:
+        qset, X = _data()
+        if "flat" in phases:
+            launches["flat_search"] = phase_main_path(workdir, qset, X, base)
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap("flat")
+        if "hnsw" in phases:
+            launches["hnsw_build"] = phase_hnsw(workdir, qset, X, base)
+            lap("hnsw")
+        del qset, X
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "ivf" in phases:
+        launches["ivf"] = phase_ivf(workdir, dev, base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("ivf")
+    if "clustered" in phases:
+        launches["hnsw_clustered_build"] = phase_hnsw_clustered(workdir, dev, base, keep="live" in phases)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("clustered")
+    if "live" in phases:
+        launches["live"], cases["live_writing_shape"] = phase_live(dev, base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("live")
+    if "cohere" in phases:
+        launches["cohere_build"] = phase_cohere(workdir, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("cohere")
+    if "sparse" in phases:
+        launches["sparse"] = phase_sparse(workdir, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("sparse")
+    if "fusion" in phases:
+        launches["fusion"] = phase_fusion(workdir)
+        gc.collect()
+        lap("fusion")
+    if "tools" in phases:
+        launches["tools_flat"] = phase_tools(workdir, dev)
+        lap("tools")
+    if "mesh" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(phase_mesh(workdir, dev, base))
+        lap("mesh")
+    return dict(launches=launches, cases=cases)
+
+
+def _die_with_parent() -> None:
+    """A worker gets SIGKILL when the process that started it ends (Linux
+    prctl PR_SET_PDEATHSIG), so no worker outlives the script."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGKILL))
+    if os.getppid() != int(os.environ[PARENT_ENV]):
+        os._exit(1)  # the parent ended before the prctl
+
+
+def worker_main(phases: tuple, out: Path) -> None:
+    _die_with_parent()
+    out.write_text(json.dumps(run_group(phases, out.parent)))
+
+
+def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
+    """Start one worker per group of `phases`, all at once; print each
+    worker's log when it ends; stop every worker at the first failure or
+    GROUP_DEADLINE_S after t_run. Returns the workers' results merged."""
+    groups = [g for g in (tuple(p for p in grp if p in phases) for grp in GROUPS) if g]
+    if not groups:
+        return dict(launches={}, cases={})
+    threads = str(max(1, len(os.sched_getaffinity(0)) // len(groups)))
+    env = dict(os.environ, **{PARENT_ENV: str(os.getpid()), "OMP_NUM_THREADS": threads,
+                              "OPENBLAS_NUM_THREADS": threads, "MKL_NUM_THREADS": threads})
+    procs, printed, merged = [], set(), dict(launches={}, cases={})
+
+    def show(i: int, status: str) -> None:
+        printed.add(i)
+        log(f"== worker {i} ({','.join(groups[i])}): {status}")
+        logf = workdir / f"group{i}.log"
+        if logf.exists():
+            sys.stdout.write(logf.read_text())
+        log(f"== end of worker {i}")
+
+    try:
+        for i, g in enumerate(groups):
+            with open(workdir / f"group{i}.log", "w") as logf:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--worker", ",".join(g),
+                     str(workdir / f"group{i}.json")],
+                    stdout=logf, stdin=subprocess.DEVNULL, env=env))
+        while len(printed) < len(procs):
+            for i, p in enumerate(procs):
+                if i in printed or p.poll() is None:
+                    continue
+                show(i, f"exit {p.returncode} at {time.perf_counter() - t_run:.1f} s since the start")
+                if p.returncode != 0:
+                    raise SystemExit(f"chip_smoke: worker {i} ({','.join(groups[i])}) "
+                                     f"failed with exit code {p.returncode}")
+                res = json.loads((workdir / f"group{i}.json").read_text())
+                merged["launches"].update(res["launches"])
+                merged["cases"].update(res["cases"])
+            if len(printed) < len(procs) and time.perf_counter() - t_run > GROUP_DEADLINE_S:
+                raise SystemExit(f"chip_smoke: workers still running {GROUP_DEADLINE_S} s after the start")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for i in range(len(procs)):
+            if i not in printed:
+                show(i, f"stopped (exit {procs[i].returncode})")
+    # launches by path in the order of PHASES, whichever worker ended first
+    order = {path: n for n, path in enumerate(("flat_search", "hnsw_build", "ivf", "hnsw_clustered_build",
+                                               "live", "cohere_build", "sparse", "fusion", "tools_flat"))}
+    merged["launches"] = dict(sorted(merged["launches"].items(), key=lambda kv: order.get(kv[0], len(order))))
+    return merged
+
+
 def main() -> None:
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
+        worker_main(tuple(sys.argv[2].split(",")), Path(sys.argv[3]))
+        return
     phases = PHASES
     if len(sys.argv) > 1:
         phases = tuple(sys.argv[2].split(",")) if len(sys.argv) == 3 else ()
         if (sys.argv[1] != "--phases" or not phases or not set(phases) <= set(PHASES)
-                or ("mesh" in phases and not set(MESH_NEEDS) <= set(phases))):
+                or ("mesh" in phases and not set(MESH_NEEDS) <= set(phases))
+                or ("live" in phases and not set(LIVE_NEEDS) <= set(phases))):
             raise SystemExit(f"usage: chip_smoke.py [--phases {','.join(PHASES)}] "
-                             f"(mesh reopens the collections of {','.join(MESH_NEEDS)}: name them too)")
+                             f"(mesh reopens the collections of {','.join(MESH_NEEDS)}, and live runs on "
+                             f"the collection of {','.join(LIVE_NEEDS)}: name them too)")
     t_run = time.perf_counter()
-    mark = [t_run]
-
-    def lap(name: str) -> None:  # a phase's wall seconds, for the time limit
-        now = time.perf_counter()
-        log(f"phase {name}: {now - mark[0]:.1f} s ({now - t_run:.1f} s since the start)")
-        mark[0] = now
+    lap = _lap_printer("the start")
 
     smi = phase_toolchain()
     phase_build()
     lap("build")
-    dev = torch.device("cuda")
     case = build_case = cohere_case = None
-    launches = {}
-    base = {}  # what the unsharded phases 4, 6 and 7 read, for the mesh phase
     if "kernel" in phases:
         case = phase_kernel_vs_plain()
         torch.cuda.empty_cache()
         build_case = phase_kernel_build_shape()
+        torch.cuda.empty_cache()
+        cohere_case = phase_kernel_cohere_shape()
         torch.cuda.empty_cache()
         lap("kernel")
     workdir = REPO / "zvec_tpu_torch" / "_build" / "smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     try:
-        if "flat" in phases or "hnsw" in phases:
-            qset, X = _data()
-            if "flat" in phases:
-                launches["flat_search"] = phase_main_path(workdir, qset, X, base)
-                gc.collect()
-                torch.cuda.empty_cache()
-                lap("flat")
-            if "hnsw" in phases:
-                launches["hnsw_build"] = phase_hnsw(workdir, qset, X, base)
-                lap("hnsw")
-            del qset, X
-            gc.collect()
-            torch.cuda.empty_cache()
-        if "ivf" in phases:
-            launches["ivf"] = phase_ivf(workdir, dev, base)
-            gc.collect()
-            torch.cuda.empty_cache()
-            lap("ivf")
-        if "clustered" in phases:
-            launches["hnsw_clustered_build"] = phase_hnsw_clustered(workdir, dev)
-            gc.collect()
-            torch.cuda.empty_cache()
-            lap("clustered")
-        if "cohere" in phases:
-            launches["cohere_build"], cohere_case = phase_cohere(workdir, dev)
-            gc.collect()
-            torch.cuda.empty_cache()
-            lap("cohere")
-        if "sparse" in phases:
-            launches["sparse"] = phase_sparse(workdir, dev)
-            gc.collect()
-            torch.cuda.empty_cache()
-            lap("sparse")
-        if "fusion" in phases:
-            launches["fusion"] = phase_fusion(workdir)
-            gc.collect()
-            lap("fusion")
-        if "tools" in phases:
-            launches["tools_flat"] = phase_tools(workdir, dev)
-            lap("tools")
-        if "mesh" in phases:
-            gc.collect()
-            torch.cuda.empty_cache()
-            launches.update(phase_mesh(workdir, dev, base))
-            lap("mesh")
+        merged = run_groups(phases, workdir, t_run)
+        lap("groups")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    launches, cases = merged["launches"], merged["cases"]
     log(smi)
     if phases != PHASES:
         log(f"partial run ({','.join(phases)}): no result line")
@@ -2496,6 +3165,7 @@ def main() -> None:
         "roofline": case["roofline"],
         "hnsw_build_shape": build_case,
         "cohere_build_shape": cohere_case,
+        "live_writing_shape": cases.get("live_writing_shape"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
