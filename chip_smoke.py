@@ -1,16 +1,19 @@
 """Smoke run of zvec_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,live,cohere,sparse,fusion,tools,mesh]
+    python3 chip_smoke.py [--phases kernel,flat,hnsw,ivf,clustered,live,cohere,sparse,fusion,tools,mesh,
+                                    compact,mips,codes,hamming]
 
 With no arguments every phase runs and the two JSON lines are printed; a
 subset of phases (for work on one path) prints no JSON line. `mesh` reopens
 the collections of `flat`, `hnsw` and `ivf`, so a subset that names it names
 those three too; `live` runs on the collection of `clustered`, so a subset
-that names it names `clustered` too.
+that names it names `clustered` too; `compact` compacts the collection of
+`hnsw` (after `mesh` when both run), so a subset that names it names `hnsw`.
 
-Phases 1-3c run in this process, alone on the card. The later phases run in
-three worker processes started together on the one card (GROUPS: flat, hnsw,
-ivf, mesh; clustered, live; cohere, sparse, fusion, tools), each group's
+Phases 1-3d run in this process, alone on the card. The later phases run in
+four worker processes started together on the one card (GROUPS: flat, hnsw,
+ivf, mesh, compact; clustered, live; cohere, sparse, fusion, tools, hamming;
+mips, codes), each group's
 phases one after another in its worker, which writes its launch counts and
 kernel cases to a JSON file; each worker's log is printed when it ends. The
 groups are independent, so their host-bound work runs side by side on the
@@ -187,12 +190,64 @@ Phases (any failure raises, and the exit code is non-zero):
      (is_linear) at recall >= 0.999 and the beam at ef 128 within 0.02 of an
      unsharded engine on the same documents; peak device memory
 
-Phases 3, 3b, 3c and 8c print, beside each stage-one time, its bound (the
+ 3d. the same kernel at the shapes of phases 14 and 16, alone: the MIPS build
+     (text2image-shaped rows augmented to D = 201 as ops/quantize.py's
+     mips_augment does, 1,000,448 rows, Q=2048 code rows, k=128, fp32 L2;
+     the rows share one norm, so ids swap among near-equal keys: each id is
+     held to its own exact key, computed in fp64) and the HAMMING FLAT scan (+-1 codes of 256 bits, 1,007,616 rows,
+     Q=1024, k=10, L2: integer keys, equal to the plain version's exactly,
+     ids compared under the exact tie rule)
+ 13. compact: phase 6's collection (after mesh) reopened, 100,000 random pks
+     deleted and delete_by_filter('grp = 7'), then optimize: the doc count
+     against a plain reference of the surviving pks, one sealed segment of
+     the survivors, the graph rebuilt over them on the card (K1 launched;
+     the merge's and the build's seconds, build_times), no deleted pk in 4
+     batches of 1024 at ef 256, recall@10 there against the survivors'
+     exact oracle no more than 0.01 under phase 6's, a reopen that loads
+     the new graph without a build, and K1 against its plain version at the
+     rebuild's own shape (the survivors' codes padded to 1024 rows, 2048
+     code rows, k=128, as phase 3b)
+ 14. mips: HnswIndexParam() with no argument (IP, m 50, ef_construction 500)
+     at big-ann-benchmarks' text2image-1B width and metric (200-d, inner
+     product) on 1,000,000 synthetic rows (make_data clustered directions
+     with lognormal norms; 1024 unit queries from their own seed with twice
+     the noise; the distribution is the script's, not text2image's): the
+     MIPS -> L2 augmentation (D = 201 codes), the exact build with K1,
+     recall@10 at ef 64 / 128 / 256 against an exact IP oracle on the card
+     (floors 0.93 / 0.97 / 0.99, just under the card's readings; on a miss a
+     COSINE build of the same rows is logged first, to tell the algorithm
+     from the port),
+     returned scores equal to q.x of their rows, the beam card against CPU
+     (64 queries), a reopen without a build
+ 15. codes: FLAT on phase 4's data with four fields (L2 FP16, L2 INT8, L2
+     INT4, IP): K1 at k 10 on each field's codes, recall@10 against the fp32
+     oracle with the refine off and on, K1's answer equal to its plain
+     version on the engine's own codes (ties aside) with its time and bound;
+     IVF on phase 7's deployment with an IVF-SQ8 field (L2, SOAR, INT8) and
+     an IVF IP field (SOAR): nprobe 8 / 16 / 32 at phase 7's floors, the
+     probe card against CPU; HNSW on bench_suite.py's config #3 (the GloVe-100
+     shape, 200,000 x 100 COSINE, m 50, ef_construction 500; its generator
+     copied) with INT8, FP16 and INT4 fields: raw and refined recall@10 at ef
+     32 / 64 / 128 (INT8 refined >= 0.99 at 64 and 128), each beam card
+     against CPU (16 queries)
+ 16. hamming: ann-benchmarks' sift-256-hamming shape, 256-bit codes as a
+     VECTOR_BINARY32 field of 8 words from a seed (clustered: each row its
+     centre with bits flipped): FlatIndexParam(HAMMING) on 1,000,000 rows
+     (K1 on the +-1 codes at D = 256) and HnswIndexParam(HAMMING) on the
+     first 250,000, packed queries in batches, against an exact Hamming
+     oracle on the card (+-1 products, held to byte popcounts for 16
+     queries): tie-aware recall (a hit is any id at a distance <= the k-th
+     true one; FLAT 1.0, HNSW >= 0.90 at ef 256), returned scores equal to
+     the true distances, the FLAT answers against K1's plain version under
+     the exact tie rule, the beam card against CPU
+
+Phases 3, 3b, 3c, 3d and 8c print, beside each stage-one time, its bound (the
 larger of the split-TF32 tensor-core work over 495 TFLOP/s and the bytes
-over 3.35 TB/s, with the FLOP and byte counts), the roofline share (bound /
-time) and, for fp32 codes, a library yardstick: torch.matmul of the same (Q,
-D) x (D, N) product in full fp32, the product only (the port never calls
-it).
+over 3.35 TB/s, with the FLOP and byte counts; one TF32 pass for the +-1
+HAMMING codes, which are exact in it), the roofline share (bound / time)
+and, for fp32 codes, a library yardstick: torch.matmul of the same (Q, D) x
+(D, N) product in full fp32 (with TF32 on for the +-1 codes, where it is
+exact), the product only (the port never calls it).
 
 The line before the last is a JSON object with the kernel's launches, error,
 times, bound and yardstick; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -366,12 +421,45 @@ LV_RECALL_SLACK = 0.01  # live recall@10 at ef 256 >= leg A's unfiltered figure,
 LV_SCORE_RTOL = 1e-5  # a returned score against its pk's live vector, of |q|^2 + |x|^2
 LV_REOPEN_RTOL = 1e-5  # scores after the crash and replay against leg C's
 BF_RATIO, BF_HOST_WORK = 0.1, 1 << 24  # the brute-force-by-keys rule (utils/config.py, collection_impl.py)
-PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "live", "cohere", "sparse", "fusion", "tools", "mesh")
+# phase mips: big-ann-benchmarks' text2image-1B shape (the NeurIPS'21 track's
+# Yandex Text-to-Image: 200-d fp32, inner product) under HnswIndexParam()'s own
+# defaults (IP, m 50, ef_construction 500), rows cut from 1,000,000,000
+MI_N, MI_D, MI_NQ = 1_000_000, 200, 1024
+MI_NORM_SEED, MI_NORM_SIGMA = 0x7217, 0.3  # each row's norm: lognormal(0, 0.3) times a clustered direction
+MI_Q_SEED, MI_Q_NOISE = 0x7218, 2.0  # text queries lie off the image corpus: twice its noise
+MI_EFS = (64, 128, 256)
+MI_FLOORS = {64: 0.93, 128: 0.97, 256: 0.99}  # recall@10 against the exact IP oracle, just under the card's
+MI_SCORE_RTOL = 1e-4  # a returned score against q.x of its row, relative
+# phase compact: phase 6's collection after `mesh`, then deletes and optimize
+CP_DELETE, CP_DBF, CP_SEED = 100_000, "grp = 7", 0xC0DE
+CP_RECALL_SLACK = 0.01  # recall@10 at ef 256 >= phase 6's, less this
+# phase codes: FP16 / INT8 / INT4 codes on FLAT (phase 4's data), IVF (phase
+# 7's deployment) and HNSW (bench_suite.py's config #3, the GloVe-100 shape)
+CD_FLAT_FIELDS = {"fp16": ("L2", "FP16"), "int8": ("L2", "INT8"), "int4": ("L2", "INT4"), "ip": ("IP", None)}
+CD_IVF_FIELDS = {"sq8": ("L2", "INT8"), "ip": ("IP", None)}
+CD_NPROBES = (8, 16, 32)
+CD_HNSW_N, CD_HNSW_D, CD_HNSW_SEED = 200_000, 100, 7  # bench_suite.py: SUITE_N_HNSW, d, SEED
+CD_HNSW_FIELDS = ("int8", "fp16", "int4")
+CD_EFS = (32, 64, 128)
+CD_FLOORS = {64: 0.99, 128: 0.99}  # INT8 refined recall@10 (zvec_tpu read 0.9961 / 0.9988, BASELINE.md)
+CD_CHECK_Q = 16  # queries of each beam held card against CPU
+# phase hamming: ann-benchmarks' sift-256-hamming shape, 256-bit codes as a
+# VECTOR_BINARY32 field of 8 words, from a seed; the HNSW index on a cut
+HM_N, HM_HNSW_N, HM_BITS, HM_NQ = 1_000_000, 250_000, 256, 1024
+HM_SEED, HM_FLIP, HM_Q_FLIP = 0xB175, 0.15, 0.2  # clustered codes: bits flipped from their centre
+HM_EFS = (64, 128, 256)
+HM_N_PAD = 1_007_616  # HM_N rounded up to the 8192-row tile, as FlatEngine pads it
+HM_POPCOUNT_Q = 16  # queries whose matmul oracle is held to a popcount on the card
+HM_HNSW_FLOOR = 0.90  # tie-aware recall@10 at ef 256 (tests/test_binary.py's floor at ef 96 on 1,500 rows)
+PHASES = ("kernel", "flat", "hnsw", "ivf", "clustered", "live", "cohere", "sparse", "fusion", "tools", "mesh",
+          "compact", "mips", "codes", "hamming")
 MESH_NEEDS = ("flat", "hnsw", "ivf")
 LIVE_NEEDS = ("clustered",)
+COMPACT_NEEDS = ("hnsw",)
 # the phases after `kernel`, in worker processes that run side by side; a
 # phase that needs another's collection is in its group, after it
-GROUPS = (("flat", "hnsw", "ivf", "mesh"), ("clustered", "live"), ("cohere", "sparse", "fusion", "tools"))
+GROUPS = (("flat", "hnsw", "ivf", "mesh", "compact"), ("clustered", "live"),
+          ("cohere", "sparse", "fusion", "tools", "hamming"), ("mips", "codes"))
 GROUP_DEADLINE_S = 1100  # since the start: workers still running then are stopped, and the run fails
 PARENT_ENV = "CHIP_SMOKE_PARENT"  # a worker's parent pid: the worker dies with it
 
@@ -397,13 +485,14 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def _bound(nq: int, n: int, d: int, topk: int, tile_n: int, codes: torch.Tensor) -> dict:
+def _bound(nq: int, n: int, d: int, topk: int, tile_n: int, codes: torch.Tensor, one_pass: bool = False) -> dict:
     """The least time the card could take for stage one: the larger of its
     tensor-core work (three TF32 products per fp32 pair, two for fp16 / int8 /
-    int4 codes, 2*Q*N*D FLOP each) over the TF32 peak and its bytes (codes,
-    norms, mask and queries read once, (tile, k, Q) keys and ids written
-    once) over the memory rate."""
-    passes = 3 if codes.dtype == torch.float32 else 2
+    int4 codes, one with `one_pass` where every code, query and sum is exact
+    in TF32, as the +-1 HAMMING codes are; 2*Q*N*D FLOP each) over the TF32
+    peak and its bytes (codes, norms, mask and queries read once, (tile, k,
+    Q) keys and ids written once) over the memory rate."""
+    passes = 1 if one_pass else 3 if codes.dtype == torch.float32 else 2
     flop = passes * 2.0 * nq * n * d
     nbytes = (codes.numel() * codes.element_size() + n * 5 + nq * d * 4
               + (n // tile_n) * topk * nq * 8)
@@ -412,25 +501,32 @@ def _bound(nq: int, n: int, d: int, topk: int, tile_n: int, codes: torch.Tensor)
                 flop=flop, bytes=nbytes)
 
 
-def _library_ms(q: torch.Tensor, codes: torch.Tensor):
-    """torch.matmul of the same (Q, D) x (D, N) fp32 product in full fp32
-    (TF32 off): the product only, without key, mask or group-max. A yardstick;
-    the port never calls it. None for codes other than fp32."""
-    if codes.dtype != torch.float32:
-        return None
+@contextlib.contextmanager
+def _tf32(on: bool):
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = on
     try:
-        return time_ms(lambda: torch.matmul(q, codes.T))
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _bound_text(b: dict, k_ms: float, lib_ms) -> str:
+def _library_ms(q: torch.Tensor, codes: torch.Tensor, tf32: bool = False):
+    """torch.matmul of the same (Q, D) x (D, N) fp32 product: the product
+    only, without key, mask or group-max. In full fp32 (TF32 off), or with
+    TF32 on where the product is exact in it (the +-1 codes). A yardstick;
+    the port never calls it. None for codes other than fp32."""
+    if codes.dtype != torch.float32:
+        return None
+    with _tf32(tf32):
+        return time_ms(lambda: torch.matmul(q, codes.T))
+
+
+def _bound_text(b: dict, k_ms: float, lib_ms, lib_kind: str = "fp32") -> str:
     lib = "n/a" if lib_ms is None else f"{lib_ms:.3f} ms"
     return (f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} ({b['flop']:.4g} FLOP at 495 TFLOP/s, "
             f"{b['bytes']:.4g} B at 3.35 TB/s), roofline {b['bound_ms'] / k_ms:.1%}; "
-            f"library {lib} (torch.matmul fp32, product only)")
+            f"library {lib} (torch.matmul {lib_kind}, product only)")
 
 
 def phase_toolchain() -> str:
@@ -581,17 +677,21 @@ def phase_kernel_vs_plain() -> dict:
     return main_case
 
 
-def _exact_oracle(X: torch.Tensor, queries: torch.Tensor, k: int = K + 1):
-    """Exact L2 top-k (k + 1 by default) on the card: float32 products, no TF32."""
-    xn = (X * X).sum(1)
+def _topk_chunks(queries: torch.Tensor, score, k: int, chunk: int = 256):
+    """Top-k of score(query block) -> (block, N) scores on the card, a block
+    of `chunk` queries at a time: (scores, ids)."""
     best_s, best_i = [], []
-    for lo in range(0, queries.shape[0], 256):
-        qb = queries[lo : lo + 256]
-        sims = -((qb * qb).sum(1)[:, None] + xn[None, :] - 2.0 * (qb @ X.T))
-        s, i = torch.topk(sims, k, dim=1)
+    for lo in range(0, queries.shape[0], chunk):
+        s, i = torch.topk(score(queries[lo : lo + chunk]), k, dim=1)
         best_s.append(s)
         best_i.append(i)
     return torch.cat(best_s), torch.cat(best_i)
+
+
+def _exact_oracle(X: torch.Tensor, queries: torch.Tensor, k: int = K + 1):
+    """Exact L2 top-k (k + 1 by default) on the card: float32 products, no TF32."""
+    xn = (X * X).sum(1)
+    return _topk_chunks(queries, lambda qb: -((qb * qb).sum(1)[:, None] + xn[None, :] - 2.0 * (qb @ X.T)), k)
 
 
 def _ids(results) -> np.ndarray:
@@ -678,11 +778,70 @@ def phase_main_path(workdir: Path, qset, X, base: dict) -> int:
     return launches
 
 
-def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, lib_ms) -> dict:
+def _own_stage1_keys(ts, ti, q, x, norms, mask):
+    """Each (key, group id) pair of an L2 stage one (tiles, k, Q) against its
+    group's exact key: the max over the group's rows (group g of tile t:
+    rows t * tile + g % 128 + 128 j) of 2 q.x - |x|^2, in fp64 from the same
+    inputs. Returns (max |key - exact|, pairs outside stage one's
+    tolerances, (tile, query) lists that hold an id twice)."""
+    from zvec_tpu_torch.ops.flat_scan import NEG_INF
+
+    tiles = ts.shape[0]
+    group = x.shape[0] // tiles // 128
+    xd = x.double()
+    nd = torch.where(mask != 0, norms.double(), torch.full_like(norms, float("inf"), dtype=torch.float64))
+    worst, outside = 0.0, 0
+    for lo in range(0, q.shape[0], 128):
+        qb = q[lo : lo + 128].double()
+        exact = (2.0 * (qb @ xd.T) - nd).view(qb.shape[0], tiles, group, 128).amax(2).reshape(qb.shape[0], -1)
+        ids = ti[:, :, lo : lo + 128].permute(2, 0, 1).reshape(qb.shape[0], -1).long()
+        keys = ts[:, :, lo : lo + 128].permute(2, 0, 1).reshape(qb.shape[0], -1).double()
+        valid = ids >= 0
+        e = torch.gather(exact, 1, ids.clamp(min=0))
+        diff = torch.where(valid, (keys - e).abs(), torch.zeros_like(keys))
+        worst = max(worst, float(diff.max()))
+        outside += int(((diff > STAGE1_ATOL + STAGE1_RTOL * e.abs()) & valid).sum())
+        outside += int((~valid & (keys > NEG_INF / 2)).sum())
+        del exact, ids, keys, valid, e, diff
+    srt = torch.sort(ti, dim=1).values
+    repeats = int(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).sum())
+    return worst, outside, repeats
+
+
+def _own_final_scores(ks, ki, ps, q, x, norms, width):
+    """Final L2 top-k rows (Q, k): every returned id at its own exact score
+    -(|q|^2 + |x|^2 - 2 q.x) (fp64, the given norms) and every score at the
+    plain version's score of the same rank, each within the row's `width`;
+    no id twice in a row. Returns (max |score - exact| / width, max |score -
+    plain| / width, bad rows)."""
+    own, rank, bad = 0.0, 0.0, 0
+    srt = torch.sort(ki, dim=1).values
+    bad_rows = (srt[:, 1:] == srt[:, :-1]).any(dim=1)
+    for lo in range(0, q.shape[0], 256):
+        qb, ib = q[lo : lo + 256].double(), ki[lo : lo + 256].clamp(min=0)
+        exact = -((qb * qb).sum(1)[:, None] + norms[ib].double()
+                  - 2.0 * torch.einsum("qd,qkd->qk", qb, x[ib].double()))
+        w = width[lo : lo + 256, None].double()
+        d_own = (ks[lo : lo + 256].double() - exact).abs() / w
+        d_rank = (ks[lo : lo + 256] - ps[lo : lo + 256]).abs().double() / w
+        own, rank = max(own, float(d_own.max())), max(rank, float(d_rank.max()))
+        bad_rows[lo : lo + 256] |= ((d_own > 1.0) | (d_rank > 1.0)).any(dim=1)
+    return own, rank, int(bad_rows.sum())
+
+
+def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, lib_ms,
+                       own_width=None) -> dict:
     """K1 against its plain version where the HNSW build calls it
     (`ops/hnsw.py::knn_build_step`: the queries are code rows, each finds
     itself): stage one and the final top-K_BUILD under phase 3b's
-    tolerances, then the times. Raises on a disagreement."""
+    tolerances, then the times. Raises on a disagreement.
+
+    With `own_width` (Q,) (L2 on MIPS-augmented rows, which all share one
+    norm, so ids swap among keys that cancel to a few ulps of |q|^2 + max
+    |x|^2) ids are held by their own keys instead of by the share that
+    moved: every stage-one id carries its group's exact key within stage
+    one's tolerances, and every final id its own exact score, at the plain
+    version's score of the same rank, within `own_width`."""
     from zvec_tpu_torch.ops import flat_scan as fs
     from zvec_tpu_torch.typing import MetricType
 
@@ -693,11 +852,29 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
     torch.cuda.synchronize()
     s1_err = float((ts_k - ts_p).abs().max())
     s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
-    swaps = float((ti_k != ti_p).float().mean())
-    del ts_k, ti_k, ts_p, ti_p
+    moved = ti_k != ti_p
+    swaps = float(moved.float().mean())
+    if own_width is None:
+        ids_ok, s1_text = swaps <= STAGE1_MAX_ID_SWAPS, f"id swaps {swaps:.2e}"
+    else:
+        moved_dkey = float((ts_k - ts_p).abs()[moved].max()) if bool(moved.any()) else 0.0
+        own_err, outside, repeats = _own_stage1_keys(ts_k, ti_k, q, x, norms, mask)
+        ids_ok = outside == 0 and repeats == 0
+        s1_text = (f"ids moved {int(moved.sum())} ({swaps:.2e}), max |dkey| among them {moved_dkey:.3g}; "
+                   f"max |key - exact key of its id| {own_err:.3g} ({outside} outside tolerance, {repeats} "
+                   f"repeated ids)")
+    del ts_k, ti_k, ts_p, ti_p, moved
     ks, ki = fs.flat_scan_topk(*args, **kw)
     ps, pi = fs.flat_scan_topk_plain(*args, **kw)
-    bad, differ, final_err = _check_final_at_k(ks, ki, ps, pi)
+    if own_width is None:
+        bad, differ, final_err = _check_final_at_k(ks, ki, ps, pi)
+        final_text = f"final rows differing {differ} (outside ties {bad}) max|dscore| {final_err:.3g}"
+    else:
+        _, differ, final_err = _check_final_at_k(ks, ki, ps, pi)
+        own_r, rank_r, bad = _own_final_scores(ks, ki, ps, q, x, norms, own_width)
+        final_text = (f"final rows differing {differ}, max|dscore| where equal {final_err:.3g}; of the width "
+                      f"(median {float(own_width.median()):.3g}): max |score - exact score of its id| "
+                      f"{own_r:.3f}, max |score - plain score at its rank| {rank_r:.3f}; bad rows {bad}")
     finite = bool(torch.isfinite(ks).all()) and bool((ki >= 0).all())
     del ks, ki, ps, pi
     k_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **kw))
@@ -706,12 +883,11 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
     pf_ms = time_ms(lambda: fs.flat_scan_topk_plain(*args, **kw))
     log(
         f"kernel {label} fp32 {metric:<6} N={x.shape[0]} D={x.shape[1]} Q={q.shape[0]} k={K_BUILD}: "
-        f"stage1 max|dkey| {s1_err:.3g} id swaps {swaps:.2e}; final rows differing "
-        f"{differ} (outside ties {bad}) max|dscore| {final_err:.3g}; "
+        f"stage1 max|dkey| {s1_err:.3g} {s1_text}; {final_text}; "
         f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
         f"full scan {kf_ms:.3f} ms vs plain {pf_ms:.3f} ms; " + _bound_text(bound, k_ms, lib_ms)
     )
-    if not (s1_ok and swaps <= STAGE1_MAX_ID_SWAPS and bad == 0 and finite):
+    if not (s1_ok and ids_ok and bad == 0 and finite):
         raise AssertionError(f"kernel disagrees with plain version at the {label}: {metric}")
     return dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, full_ms=kf_ms, full_plain_ms=pf_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
@@ -764,7 +940,8 @@ def _beam_on(engine, qs: np.ndarray, dev: torch.device, cpu_cache: dict, **kw):
         torch.from_numpy(qs).to(dev), walk[0], walk[1], t["l0"], t["upper_ids"],
         t["upper_nbrs"], t["upper_down"], g["entry_rows"], None, budget, walk[2], *refine,
         metric=engine._search_metric, ef=BEAM_CHECK_EF, max_steps=BEAM_CHECK_EF + 64,
-        num_levels=g["num_levels"], frontier=4, done_frac=1.0, **kw,
+        num_levels=g["num_levels"], frontier=4, done_frac=1.0,
+        int4_packed=t["route"] is None and engine._int4_packed, **kw,
     )
 
 
@@ -1043,6 +1220,52 @@ def make_clustered(n: int, dim: int, nq: int):
     return X, queries
 
 
+def mips_data(n: int, nq: int):
+    """The text2image shape: make_data("clustered", n, MI_D)'s rows as
+    directions, each scaled to a lognormal norm (so IP, COSINE and L2 rank
+    differently), and unit queries near the same centres with twice the
+    corpus's noise, drawn from their own seed (text queries lie off an image
+    corpus)."""
+    X, _ = make_clustered(n, MI_D, 0)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    X *= np.random.default_rng(MI_NORM_SEED).lognormal(0.0, MI_NORM_SIGMA, n).astype(np.float32)[:, None]
+    k = max(32, n // 10_000)
+    centers = np.random.default_rng(1234).standard_normal((k, MI_D)).astype(np.float32) * 5.0  # make_data's
+    rng = np.random.default_rng(MI_Q_SEED)
+    Q = centers[rng.integers(0, k, nq)] + MI_Q_NOISE * rng.standard_normal((nq, MI_D)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=1, keepdims=True)  # unit queries: IP ranks by norm x cosine, L2 does not
+    return X, Q
+
+
+def config3_data(n: int, nq: int):
+    """`benchmarks/bench_suite.py::stage_int8_hnsw`'s GloVe-100-shaped rows
+    and queries, copied draw for draw (its SEED = 7)."""
+    rng = np.random.default_rng(CD_HNSW_SEED)
+    kc = max(16, n // 10_000)
+    centers = rng.standard_normal((kc, CD_HNSW_D)).astype(np.float32) * 3.0
+    asn = rng.integers(0, kc, n)
+    X = (centers[asn] + rng.standard_normal((n, CD_HNSW_D)).astype(np.float32)).astype(np.float32)
+    Q = (centers[rng.integers(0, kc, nq)]
+         + rng.standard_normal((nq, CD_HNSW_D)).astype(np.float32)).astype(np.float32)
+    return X, Q
+
+
+def hamming_data(n: int, nq: int):
+    """(n, HM_BITS) and (nq, HM_BITS) 0/1 codes: one random centre per
+    10,000 rows (at least 32), each row its centre with every bit flipped
+    with probability HM_FLIP (queries HM_Q_FLIP)."""
+    rng = np.random.default_rng(HM_SEED)
+    k = max(32, n // 10_000)
+    centers = rng.integers(0, 2, (k, HM_BITS), dtype=np.uint8)
+    asn = rng.integers(0, k, n)
+    X = np.empty((n, HM_BITS), np.uint8)
+    for lo in range(0, n, 1 << 17):
+        hi = min(lo + (1 << 17), n)
+        X[lo:hi] = centers[asn[lo:hi]] ^ (rng.random((hi - lo, HM_BITS), dtype=np.float32) < HM_FLIP)
+    Q = centers[rng.integers(0, k, nq)] ^ (rng.random((nq, HM_BITS), dtype=np.float32) < HM_Q_FLIP)
+    return X, Q.astype(np.uint8)
+
+
 def _ivf_data():
     """bench_suite.py's config #4: make_data("clustered", ...) for vectors and
     queries, then tags and prices from default_rng(SEED + 1) with its SEED = 7."""
@@ -1057,7 +1280,7 @@ def _recall(got: np.ndarray, exp: np.ndarray) -> float:
     return float(np.mean([len(set(got[r]) & set(exp[r])) for r in range(len(got))]) / exp.shape[1])
 
 
-def _probe_check(engine, queries: np.ndarray, dev: torch.device) -> None:
+def _probe_check(engine, queries: np.ndarray, dev: torch.device, label: str = "ivf") -> None:
     """The engine's probe on its CUDA tensors against the same probe on CPU
     copies of them: ids equal, scores within PROBE_RTOL, except rows whose
     differing ids all score within PROBE_RTOL of the row's k-th score."""
@@ -1080,11 +1303,11 @@ def _probe_check(engine, queries: np.ndarray, dev: torch.device) -> None:
     cpu_s = time.perf_counter() - t0
     bad, differ, err = _check_final_at_k(cs, ci.long(), ps, pi.long(), rtol=PROBE_RTOL)
     scale = max(float(ps.abs().max()), 1.0)
-    log(f"ivf: CUDA probe vs CPU probe on {PROBE_CHECK_Q} queries at nprobe={PROBE_CHECK_NPROBE} "
+    log(f"{label}: CUDA probe vs CPU probe on {PROBE_CHECK_Q} queries at nprobe={PROBE_CHECK_NPROBE} "
         f"(+{engine._extra_probes} for split lists), top-{2 * K}: {differ} rows differ "
         f"({bad} outside near-ties), max |dscore| {err:.3g} on equal rows; CPU probe {cpu_s:.2f} s")
     if bad or err > PROBE_RTOL * scale:
-        raise AssertionError("ivf: the CUDA probe disagrees with the CPU probe")
+        raise AssertionError(f"{label}: the CUDA probe disagrees with the CPU probe")
 
 
 def phase_ivf(workdir: Path, dev: torch.device, base: dict) -> int:
@@ -1978,14 +2201,8 @@ def _cosine_oracle(xd: torch.Tensor, qd: torch.Tensor, k: int):
     """Exact fp32 COSINE top-k on the card (TF32 off), scored as the refine
     scores: dot / (|q| |x|)."""
     xn = xd.norm(dim=1)
-    best_s, best_i = [], []
-    for lo in range(0, qd.shape[0], 250):
-        qb = qd[lo : lo + 250]
-        sims = (qb @ xd.T) / (qb.norm(dim=1)[:, None] * xn[None, :])
-        s, i = torch.topk(sims, k, dim=1)
-        best_s.append(s)
-        best_i.append(i)
-    return torch.cat(best_s).cpu().numpy(), torch.cat(best_i).cpu().numpy()
+    s, i = _topk_chunks(qd, lambda qb: (qb @ xd.T) / (qb.norm(dim=1)[:, None] * xn[None, :]), k, chunk=250)
+    return s.cpu().numpy(), i.cpu().numpy()
 
 
 def cohere_corpus():
@@ -2963,6 +3180,606 @@ def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
     return launches
 
 
+def _first_engine(col, field: str = "vec"):
+    return next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for(field)
+
+
+def _ip_oracle(xd: torch.Tensor, qd: torch.Tensor, k: int):
+    """Exact fp32 inner-product top-k on the card (TF32 off)."""
+    return _topk_chunks(qd, lambda qb: qb @ xd.T, k)
+
+
+def _timed_batch(col, field: str, queries: np.ndarray, param, reps: int = 2):
+    """One batch_query for the answer, then the best of `reps` timed ones:
+    (ids, scores, seconds)."""
+    first = col.batch_query(field, queries, topk=K, output_fields=[], param=param)
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        col.batch_query(field, queries, topk=K, output_fields=[], param=param)
+        times.append(time.perf_counter() - t1)
+    ids = _ids(first)
+    scores = np.array([[d.score for d in docs] for docs in first], np.float64)
+    if ids.shape != (len(queries), K) or not np.isfinite(scores).all():
+        raise AssertionError(f"{field}: results are not ({len(queries)}, {K}) finite scores")
+    return ids, scores, min(times)
+
+
+def _insert_all(col, n: int, make_doc) -> float:
+    t0 = time.perf_counter()
+    for lo in range(0, n, 1024):
+        col.insert([make_doc(i) for i in range(lo, min(lo + 1024, n))])
+    return time.perf_counter() - t0
+
+
+def _reopen_check(path: Path, field: str, queries: np.ndarray, param, want: np.ndarray, label: str) -> None:
+    """Open the collection again: the index file loads with no K1 launch and
+    no build, and the answers equal `want`."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+
+    before = flat_scan_topk.launches
+    t0 = time.perf_counter()
+    reopened = zt.open(str(path))
+    again = _ids(reopened.batch_query(field, queries, topk=K, output_fields=[], param=param))
+    t_open = time.perf_counter() - t0
+    loaded = _first_engine(reopened, field)._loaded_aux is not None
+    reopened._impl.close()
+    if flat_scan_topk.launches != before or not loaded:
+        raise AssertionError(f"{label}: the reopened collection rebuilt its graph")
+    if not (again == want).all():
+        raise AssertionError(f"{label}: reopened collection returns other ids")
+    log(f"{label}: reopened collection loads the graph from disk (no kernel launch) and returns identical "
+        f"ids; open + first batch {t_open:.2f} s")
+
+
+def phase_kernel_new_shapes() -> dict:
+    """K1 at the shapes this matrix adds, alone on the card: the MIPS build
+    (the text2image rows augmented to D = 201, 2048 code rows a scan, k 128,
+    fp32 L2) and the HAMMING FLAT scan (+-1 codes of 256 bits, Q 1024, k 10,
+    L2, every key an integer: ids compared under the tie rule)."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+    from zvec_tpu_torch.typing import MetricType
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    kc = max(32, MI_N // 10_000)
+    centers = torch.randn((kc, MI_D), generator=g, device=dev) * 5.0
+    x = centers[torch.randint(0, kc, (MI_N,), generator=g, device=dev)]
+    x += torch.randn((MI_N, MI_D), generator=g, device=dev)
+    x *= torch.exp(MI_NORM_SIGMA * torch.randn((MI_N, 1), generator=g, device=dev)) / x.norm(dim=1, keepdim=True)
+    sq = (x * x).sum(1)
+    xa = torch.zeros((N_BUILD_PAD, MI_D + 1), device=dev)
+    xa[:MI_N, :MI_D] = x
+    xa[:MI_N, MI_D] = torch.sqrt(torch.clamp(sq.max() - sq, min=0.0))  # ops/quantize.py::mips_augment
+    del x, sq, centers
+    mask = (torch.arange(N_BUILD_PAD, device=dev) < MI_N).to(torch.int8)
+    q = xa[:Q_BUILD].contiguous()
+    bound = _bound(Q_BUILD, N_BUILD_PAD, MI_D + 1, K_BUILD, fs.pick_tile(N_BUILD_PAD, K_BUILD), xa)
+    norms = (xa * xa).sum(1)
+    # -(|q|^2 + |x|^2 - 2 q.x) cancels: every augmented row has |x|^2 = max
+    # |x|^2, so a score is good to a few ulps of |q|^2 + max |x|^2, not of itself
+    width = TIE_RTOL * (norms[:Q_BUILD] + norms.max())
+    out = {"mips_build_shape": _k1_at_build_shape(xa, mask, q, norms, "L2", "mips build shape", bound,
+                                                  _library_ms(q, xa), own_width=width)}
+    del xa, q, mask, norms
+    torch.cuda.empty_cache()
+
+    centers = torch.randint(0, 2, (max(32, HM_N // 10_000), HM_BITS), generator=g, device=dev)
+    rows = centers[torch.randint(0, centers.shape[0], (HM_N,), generator=g, device=dev)]
+    rows ^= (torch.rand((HM_N, HM_BITS), generator=g, device=dev) < HM_FLIP).long()
+    x = torch.zeros((HM_N_PAD, HM_BITS), device=dev)
+    x[:HM_N] = rows.float() * 2.0 - 1.0
+    qb = centers[torch.randint(0, centers.shape[0], (Q,), generator=g, device=dev)]
+    qb ^= (torch.rand((Q, HM_BITS), generator=g, device=dev) < HM_Q_FLIP).long()
+    q = qb.float() * 2.0 - 1.0
+    del rows, qb, centers
+    mask = (torch.arange(HM_N_PAD, device=dev) < HM_N).to(torch.int8)
+    norms = (x * x).sum(1)
+    kw = dict(metric=MetricType.L2, topk=K)
+    args = (q, x, norms, mask)
+    ts_k, _ = fs.flat_scan_stage1(*args, **kw)
+    ts_p, _ = fs.flat_scan_stage1(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    s1_err = float((ts_k - ts_p).abs().max())  # integer keys: 0 unless a key is wrong
+    del ts_k, ts_p
+    ks, ki = fs.flat_scan_topk(*args, **kw)
+    ps, pi = fs.flat_scan_topk_plain(*args, **kw)
+    bad, differ, final_err = _check_final_at_k(ks, ki, ps, pi, rtol=0.0)
+    k_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **kw))
+    p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **kw))
+    bound = _bound(Q, HM_N_PAD, HM_BITS, K, fs.pick_tile(HM_N_PAD, K), x, one_pass=True)
+    with _tf32(False):
+        full = q @ x[:65536].T
+    with _tf32(True):  # +-1 products and their sums (|.| <= 256) are exact in one TF32 pass
+        tf32_exact = torch.equal(q @ x[:65536].T, full)
+    del full
+    lib_ms = _library_ms(q, x, tf32=True)
+    log(f"kernel hamming shape fp32 L2 on +-1 codes N={HM_N_PAD} D={HM_BITS} Q={Q} k={K}: stage1 max|dkey| "
+        f"{s1_err:.3g}; final rows differing {differ} (outside exact ties {bad}) max|dscore| {final_err:.3g}; "
+        f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; TF32 product equal to the fp32 one on 65,536 rows "
+        f"{tf32_exact}; " + _bound_text(bound, k_ms, lib_ms, "TF32, exact here"))
+    if s1_err != 0.0 or bad or final_err != 0.0 or not tf32_exact:
+        raise AssertionError("kernel disagrees with plain version at the hamming shape")
+    out["hamming_flat_shape"] = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound["bound_ms"],
+                                     bound_by=bound["bound_by"], library_ms=lib_ms, roofline=bound["bound_ms"] / k_ms)
+    del x, q, mask, norms, args
+    return out
+
+
+def phase_mips(workdir: Path, dev: torch.device) -> int:
+    """The default HNSW index (HnswIndexParam(): IP, m 50, efc 500) on the
+    text2image shape at MI_N rows: the MIPS augmentation, the build with K1
+    at D = 201, recall against the exact IP oracle at MI_EFS, scores as inner
+    products, the beam card against CPU, reopen. Returns K1's launches in the build."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+    from zvec_tpu_torch.ops.hnsw import hnsw_search
+    from zvec_tpu_torch.ops.quantize import mips_augment_query
+
+    t0 = time.perf_counter()
+    X, queries = mips_data(MI_N, MI_NQ)
+    norms = np.linalg.norm(X, axis=1)
+    log(f"mips: {MI_N} x {MI_D} rows (make_data clustered directions, lognormal(0, {MI_NORM_SIGMA}) norms: "
+        f"min {norms.min():.4f} median {np.median(norms):.4f} max {norms.max():.4f}) and {MI_NQ} unit queries "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    param = zt.HnswIndexParam()
+    if (param.metric_type, param.m, param.ef_construction) != (zt.MetricType.IP, 50, 500):
+        raise AssertionError(f"mips: HnswIndexParam()'s defaults moved: {param}")
+    schema = zt.CollectionSchema("t2i", vectors=[zt.VectorSchema("vec", zt.DataType.VECTOR_FP32, MI_D, param)])
+    path = workdir / "t2i"
+    flat_scan_topk.launches = 0
+    col = zt.create_and_open(str(path), schema)
+    t_insert = _insert_all(col, MI_N, lambda i: zt.Doc(id=str(i), vectors={"vec": X[i]}))
+    t0 = time.perf_counter()
+    col.optimize()
+    t_opt = time.perf_counter() - t0
+    col.flush()
+    launches = flat_scan_topk.launches
+    engine = _first_engine(col)
+    bt = engine.build_times
+    log(f"mips: insert {t_insert:.2f} s, optimize {t_opt:.2f} s, of which the engine build "
+        f"{engine.stats.last_build_secs:.2f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in bt.items())
+        + f"; codes {engine._codes.dtype} {tuple(engine._codes.shape)} (D + 1: the augmented column), max |x|^2 "
+        f"{engine._mips_max_norm2:.4f}, search metric {engine._search_metric.name}, {engine.build_info}; "
+        f"K1 launches in the build {launches}")
+    if not engine._mips or engine._codes.shape[1] != MI_D + 1 or engine._search_metric != zt.MetricType.L2:
+        raise AssertionError("mips: the index did not take the MIPS -> L2 augmentation")
+    if launches == 0:
+        raise AssertionError("mips: the build never launched the flat-scan kernel")
+
+    _, gi = _ip_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(queries).to(dev), K)
+    exp = gi.cpu().numpy()
+    recalls, ids128 = {}, None
+    for ef in MI_EFS:
+        ids, scores, batch_s = _timed_batch(col, "vec", queries, zt.HnswQueryParam(ef=ef))
+        recalls[ef] = _recall(ids, exp)
+        exact = np.einsum("qd,qkd->qk", queries.astype(np.float64), X[ids].astype(np.float64))
+        err = float((np.abs(scores - exact) / np.maximum(np.abs(exact), 1e-6)).max())
+        ids128 = ids if ef == 128 else ids128
+        log(f"mips: ef={ef}: {batch_s * 1e3:.2f} ms per {MI_NQ}-query batch (best of 2; "
+            f"{hnsw_search.last_steps} beam steps in the last batch); recall@{K} {recalls[ef]:.4f} against the "
+            f"exact IP oracle; max |score - q.x| / |q.x| {err:.3g}")
+        if err > MI_SCORE_RTOL or (np.diff(scores, axis=1) > 1e-6).any():
+            raise AssertionError("mips: the scores are not the rows' inner products, best first")
+    _profiled(f"mips beam batch ef=128 ({MI_NQ} queries)",
+              lambda: engine.search(queries, K, None, zt.HnswQueryParam(ef=128)))
+    _beam_check(engine, mips_augment_query(queries[:BEAM_CHECK_Q]), "mips")
+    col._impl.close()
+    del col, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    missed = {ef: r for ef, r in recalls.items() if r < MI_FLOORS[ef]}
+    if missed:  # the control first, so that the log tells the algorithm from the port
+        _mips_cosine_control(workdir, X, queries, dev, recalls[MI_EFS[-1]])
+        raise AssertionError(f"mips: recall@10 below its floor at ef {sorted(missed)}: {missed}, floors {MI_FLOORS}")
+    _reopen_check(path, "vec", queries, zt.HnswQueryParam(ef=128), ids128, "mips")
+    shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def _mips_cosine_control(workdir: Path, X: np.ndarray, queries: np.ndarray, dev: torch.device, ip_recall: float):
+    """The same rows under COSINE (no augmentation), logged: if the port's
+    graph and beam read the floor there, the IP shortfall is the
+    augmentation's."""
+    import zvec_tpu_torch as zt
+
+    schema = zt.CollectionSchema("t2i_cos", vectors=[zt.VectorSchema(
+        "vec", zt.DataType.VECTOR_FP32, MI_D, zt.HnswIndexParam(zt.MetricType.COSINE))])
+    path = workdir / "t2i_cos"
+    col = zt.create_and_open(str(path), schema)
+    _insert_all(col, MI_N, lambda i: zt.Doc(id=str(i), vectors={"vec": X[i]}))
+    col.optimize()
+    _, gi = _cosine_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(queries).to(dev), K)
+    ids = _ids(col.batch_query("vec", queries, topk=K, output_fields=[], param=zt.HnswQueryParam(ef=MI_EFS[-1])))
+    cos = _recall(ids, gi)
+    col._impl.close()
+    shutil.rmtree(path, ignore_errors=True)
+    log(f"mips: COSINE control on the same rows at ef={MI_EFS[-1]}: recall@{K} {cos:.4f} against the exact "
+        f"COSINE oracle (IP through the augmentation {ip_recall:.4f}, floor {MI_FLOORS[MI_EFS[-1]]})")
+
+
+def phase_compact(workdir: Path, dev: torch.device, base: dict) -> tuple:
+    """Phase 6's 1M HNSW collection after `mesh`: delete CP_DELETE random pks,
+    delete_by_filter(CP_DBF), optimize (the merge without the deleted docs,
+    then the graph rebuilt over the survivors on K1), against a plain
+    reference of the surviving pks; K1 against its plain version at the
+    rebuild's shape; recall at ef 256 beside phase 6's; reopen. Returns
+    (K1's launches in the rebuild, the K1 case)."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops import flat_scan as fs
+    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
+
+    qset, X = _data()
+    grp = np.random.default_rng(SEED + 3).integers(0, GRP_VALUES, N)  # phase 6's field
+    gone = np.random.default_rng(CP_SEED).choice(N, CP_DELETE, replace=False)
+    alive = np.ones(N, bool)
+    alive[gone] = False
+    alive &= grp != 7
+    survivors = np.flatnonzero(alive)
+    path = workdir / "hnsw1m"
+    t0 = time.perf_counter()
+    col = zt.open(str(path))
+    t_open = time.perf_counter() - t0
+    if col.stats.doc_count != N:
+        raise AssertionError(f"compact: phase 6's collection holds {col.stats.doc_count} docs, not {N}")
+    t0 = time.perf_counter()
+    statuses = [st for lo in range(0, CP_DELETE, 1024)  # a write batch holds at most 1024
+                for st in col.delete([str(i) for i in gone[lo : lo + 1024]])]
+    t_del = time.perf_counter() - t0
+    col.delete_by_filter(CP_DBF)
+    t_dbf = time.perf_counter() - t0 - t_del
+    if not all(statuses) or col.stats.doc_count != len(survivors):
+        raise AssertionError(f"compact: {col.stats.doc_count} docs after the deletes, the reference says "
+                             f"{len(survivors)}")
+    impl = col._impl
+    segs_before = [(s.meta.segment_id, s.doc_count) for s in impl._segments_snapshot() if s.doc_count > 0]
+    built = []
+    build = impl._build_indexes_for
+
+    def timed_build(seg):
+        t1 = time.perf_counter()
+        build(seg)
+        built.append(time.perf_counter() - t1)
+
+    impl._build_indexes_for = timed_build
+    flat_scan_topk.launches = 0
+    t0 = time.perf_counter()
+    try:
+        col.optimize()
+    finally:
+        del impl._build_indexes_for
+    t_opt = time.perf_counter() - t0
+    col.flush()
+    launches = flat_scan_topk.launches
+    segs = [s for s in impl._segments_snapshot() if s.doc_count > 0]
+    engine = segs[0].engine_for("vec")
+    bt = engine.build_times
+    log(f"compact: open {t_open:.2f} s; delete {CP_DELETE} pks {t_del:.2f} s, delete_by_filter({CP_DBF!r}) "
+        f"{t_dbf:.2f} s; {col.stats.doc_count} docs (reference {len(survivors)}); optimize {t_opt:.2f} s: the "
+        f"merge (sealed store read, filtered, written) {t_opt - sum(built):.2f} s, the index build "
+        f"{sum(built):.2f} s (" + ", ".join(f"{k} {v:.2f} s" for k, v in bt.items())
+        + f"); segments {segs_before} -> {[(s.meta.segment_id, s.doc_count) for s in segs]}, writing "
+        f"{impl.writing.doc_count}; {engine.build_info}; K1 launches in the rebuild {launches}")
+    if len(segs) != 1 or segs[0].doc_count != len(survivors) or impl.writing.doc_count != 0 or len(built) != 1:
+        raise AssertionError("compact: the merge did not leave one sealed segment of the survivors")
+    if launches == 0:
+        raise AssertionError("compact: the rebuild never launched the flat-scan kernel")
+    # K1 where the rebuild called it: the survivors' own codes and norms
+    # padded to 1024 rows as the build pads them, 2048 code rows a scan
+    n = segs[0].doc_count
+    n_pad = -(-n // 1024) * 1024
+    x = torch.zeros((n_pad, D), device=dev)
+    x[:n] = engine._codes[:n]
+    sq = torch.zeros(n_pad, device=dev)
+    sq[:n] = engine._norms[:n]
+    mask = (torch.arange(n_pad, device=dev) < n).to(torch.int8)
+    q = x[:Q_BUILD].contiguous()
+    if engine._codes.dtype != torch.float32 or engine._search_metric != zt.MetricType.L2:
+        raise AssertionError("compact: the rebuilt engine does not hold fp32 L2 codes")
+    bound = _bound(Q_BUILD, n_pad, D, K_BUILD, fs.pick_tile(n_pad, K_BUILD), x)
+    case = _k1_at_build_shape(x, mask, q, sq, "L2", "compaction rebuild shape (beside the other workers)", bound,
+                              _library_ms(q, x))
+    flat_scan_topk.launches = launches  # the comparison's launches are not the path's
+    del x, sq, mask, q
+
+    _, oi = _exact_oracle(torch.from_numpy(X[survivors]).to(dev), torch.from_numpy(qset[0]).to(dev))
+    exp = survivors[oi[:, :K].cpu().numpy()]
+    param = zt.HnswQueryParam(ef=256, done_frac=1.0)
+    first = _ids(col.batch_query("vec", qset[0], topk=K, output_fields=[], param=param))
+    t1 = time.perf_counter()
+    out = col.batch_query_many("vec", qset, topk=K, output_fields=[], param=param)
+    batch_s = (time.perf_counter() - t1) / len(qset)
+    returned = np.concatenate([_ids(r).ravel() for r in out])
+    dead = int((~alive[returned]).sum())
+    recall = _recall(first, exp)
+    ref = base["hnsw_recall"][256]
+    log(f"compact: ef=256: {batch_s * 1e3:.2f} ms per 1024-query batch ({len(qset)} blocks); deleted pks "
+        f"returned {dead} of {returned.size}; recall@{K} {recall:.4f} against the survivors' exact oracle "
+        f"(phase 6 before the deletes {ref:.4f}, floor {ref - CP_RECALL_SLACK:.4f})")
+    if dead:
+        raise AssertionError("compact: a deleted pk came back")
+    if recall < ref - CP_RECALL_SLACK:
+        raise AssertionError(f"compact: recall@10 {recall:.4f} < phase 6's {ref:.4f} less {CP_RECALL_SLACK}")
+    col._impl.close()
+    del col, engine, segs
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reopen_check(path, "vec", qset[0], param, first, "compact")
+    return launches, case
+
+
+def _codes_flat(workdir: Path, dev: torch.device) -> int:
+    """FLAT with FP16 / INT8 / INT4 codes and IP, four fields on phase 4's
+    data: K1 on each field's codes (refine off), recall with and without the
+    refine, and K1's answer equal to its plain version on the engine's own
+    device codes, ties aside. Returns K1's launches on the fields' queries."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.model.param.param import FlatQueryParam
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    qset, X = _data()
+    queries = qset[0]
+    quant = {None: zt.QuantizeType.UNDEFINED, "FP16": zt.QuantizeType.FP16, "INT8": zt.QuantizeType.INT8,
+             "INT4": zt.QuantizeType.INT4}
+    schema = zt.CollectionSchema("codes_flat", vectors=[
+        zt.VectorSchema(f, zt.DataType.VECTOR_FP32, D, zt.FlatIndexParam(zt.MetricType[m], quantize_type=quant[q]))
+        for f, (m, q) in CD_FLAT_FIELDS.items()])
+    path = workdir / "codes_flat"
+    col = zt.create_and_open(str(path), schema)
+    t_insert = _insert_all(col, N, lambda i: zt.Doc(id=str(i), vectors={f: X[i] for f in CD_FLAT_FIELDS}))
+    col.optimize()
+    col.flush()
+    log(f"codes flat: {N} x {D} docs into {len(CD_FLAT_FIELDS)} fields in {t_insert:.2f} s")
+    xd, qd = torch.from_numpy(X).to(dev), torch.from_numpy(queries).to(dev)
+    oracle = {"L2": _exact_oracle(xd, qd)[1][:, :K].cpu().numpy(), "IP": _ip_oracle(xd, qd, K)[1].cpu().numpy()}
+    del xd
+    launches = 0
+    fs.flat_scan_topk.launches = 0
+    for f, (m, q) in CD_FLAT_FIELDS.items():
+        engine = _first_engine(col, f)
+        for refine in ((False, True) if q else (None,)):
+            before = fs.flat_scan_topk.launches
+            t0 = time.perf_counter()
+            ids, scores, batch_s = _timed_batch(col, f, queries, FlatQueryParam(is_using_refiner=refine))
+            k1 = fs.flat_scan_topk.launches - before
+            st = engine._st  # built by the first query
+            log(f"codes flat {f} ({m}, {q or 'fp32'}): refine {'off' if refine is False else 'on' if q else 'n/a'}: "
+                f"{batch_s * 1e3:.2f} ms per 1024-query batch (best of 2; first call with the engine build "
+                f"{time.perf_counter() - t0 - 2 * batch_s:.2f} s); recall@{K} {_recall(ids, oracle[m]):.4f} against "
+                f"the exact fp32 {m} oracle; codes {st.codes.dtype} {tuple(st.codes.shape)}, dequant {st.dequant}; "
+                f"K1 launches {k1}")
+            if refine is not True and k1 == 0:
+                raise AssertionError(f"codes flat {f}: the scan at k = {K} never launched the flat-scan kernel")
+            if refine is None and _recall(ids, oracle[m]) < 1.0 - 1e-3:
+                raise AssertionError(f"codes flat {f}: the exact fp32 scan reads below 1.0")
+        launches = fs.flat_scan_topk.launches
+        # K1's answer (the engine's own scan, refine off) against its plain
+        # version on the same device codes, norms and mask
+        sims, idx = engine.search(queries, K, None, FlatQueryParam(is_using_refiner=False))
+        mask = (torch.arange(st.n_pad, device=dev) < st.n).to(torch.int8)
+        kw = dict(metric=zt.MetricType[m], dequant=st.dequant, int4_dim=D if st.int4_packed else None)
+        ps, pi = fs.flat_scan_topk_plain(qd, st.codes, st.norms, mask, topk=K + 1, **kw)
+        bad, differ, err = _check_final(torch.from_numpy(sims), torch.from_numpy(idx), ps.cpu(), pi.cpu())
+        k_ms = time_ms(lambda: fs.flat_scan_stage1(qd, st.codes, st.norms, mask, topk=K, **kw))
+        p_ms = time_ms(lambda: fs.flat_scan_stage1(qd, st.codes, st.norms, mask, topk=K, plain=True, **kw))
+        bound = _bound(Q, st.n_pad, D, K, fs.pick_tile(st.n_pad, K), st.codes)
+        log(f"codes flat {f}: K1 on the engine's codes vs its plain version: rows differing {differ} (outside "
+            f"near-ties {bad}), max |dscore| {err:.3g}; stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms (beside the "
+            f"other workers); " + _bound_text(bound, k_ms, _library_ms(qd, st.codes)))
+        fs.flat_scan_topk.launches = launches  # the comparison's launches are not the path's
+        if bad:
+            raise AssertionError(f"codes flat {f}: K1 disagrees with its plain version on the engine's codes")
+    col._impl.close()
+    shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def _codes_ivf(workdir: Path, dev: torch.device) -> None:
+    """IVF-SQ8 (L2, SOAR, INT8 lists) and IVF IP (SOAR, fp32 lists) on
+    phase 7's deployment: nprobe CD_NPROBES at phase 7's floors (the same
+    lists), the probe card against CPU."""
+    import zvec_tpu_torch as zt
+
+    X, queries, _, _ = _ivf_data()
+    quant = {None: zt.QuantizeType.UNDEFINED, "INT8": zt.QuantizeType.INT8}
+    schema = zt.CollectionSchema("codes_ivf", vectors=[zt.VectorSchema(
+        f, zt.DataType.VECTOR_FP32, IVF_D, zt.IVFIndexParam(zt.MetricType[m], use_soar=True, quantize_type=quant[q]))
+        for f, (m, q) in CD_IVF_FIELDS.items()])
+    path = workdir / "codes_ivf"
+    col = zt.create_and_open(str(path), schema)
+    t_insert = _insert_all(col, IVF_N, lambda i: zt.Doc(id=str(i), vectors={f: X[i] for f in CD_IVF_FIELDS}))
+    t0 = time.perf_counter()
+    col.optimize()
+    t_opt = time.perf_counter() - t0
+    col.flush()
+    xd, qd = torch.from_numpy(X).to(dev), torch.from_numpy(queries).to(dev)
+    oracle = {"L2": _exact_oracle(xd, qd)[1][:, :K].cpu().numpy(), "IP": _ip_oracle(xd, qd, K)[1].cpu().numpy()}
+    del xd
+    log(f"codes ivf: {IVF_N} x {IVF_D} docs into {len(CD_IVF_FIELDS)} fields: insert {t_insert:.2f} s, optimize "
+        f"{t_opt:.2f} s")
+    for f, (m, q) in CD_IVF_FIELDS.items():
+        engine = _first_engine(col, f)
+        bt = engine.build_times
+        log(f"codes ivf {f} ({m}, {q or 'fp32'}): build " + ", ".join(f"{k} {v:.2f} s" for k, v in bt.items())
+            + f"; lists {engine._lists_codes.dtype} {tuple(engine._lists_codes.shape)}, dequant {engine._dequant}")
+        if (engine._lists_codes.dtype == torch.int8) != (q == "INT8"):
+            raise AssertionError(f"codes ivf {f}: the lists are {engine._lists_codes.dtype}")
+        for nprobe in CD_NPROBES:
+            ids, _, batch_s = _timed_batch(col, f, queries, zt.IVFQueryParam(nprobe=nprobe))
+            recall, floor = _recall(ids, oracle[m]), IVF_FLOORS[nprobe]
+            log(f"codes ivf {f}: nprobe={nprobe}: {batch_s * 1e3:.2f} ms per 1024-query batch (best of 2); "
+                f"recall@{K} {recall:.4f} against the exact fp32 {m} oracle (floor {floor})")
+            if recall < floor:
+                raise AssertionError(f"codes ivf {f}: recall@10 at nprobe={nprobe} is {recall:.4f} < {floor}")
+        _probe_check(engine, queries, dev, label=f"codes ivf {f}")
+    col._impl.close()
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def _codes_hnsw(workdir: Path, dev: torch.device) -> None:
+    """bench_suite.py's config #3 (GloVe-100 shape, COSINE, m 50, efc 500) at
+    CD_HNSW_N rows with INT8, FP16 and INT4 fields: raw and refined recall at
+    CD_EFS against the exact COSINE oracle, INT8 refined at CD_FLOORS, each
+    code type's beam card against CPU."""
+    import zvec_tpu_torch as zt
+
+    X, queries = config3_data(CD_HNSW_N, Q)
+    schema = zt.CollectionSchema("glove_like", vectors=[zt.VectorSchema(
+        f, zt.DataType.VECTOR_FP32, CD_HNSW_D, zt.HnswIndexParam(
+            zt.MetricType.COSINE, m=50, ef_construction=500, quantize_type=zt.QuantizeType[f.upper()]))
+        for f in CD_HNSW_FIELDS])
+    path = workdir / "codes_hnsw"
+    col = zt.create_and_open(str(path), schema)
+    t_insert = _insert_all(col, CD_HNSW_N, lambda i: zt.Doc(id=str(i), vectors={f: X[i] for f in CD_HNSW_FIELDS}))
+    t0 = time.perf_counter()
+    col.optimize()
+    t_opt = time.perf_counter() - t0
+    col.flush()
+    _, gi = _cosine_oracle(torch.from_numpy(X).to(dev), torch.from_numpy(queries).to(dev), K)
+    log(f"codes hnsw: {CD_HNSW_N} x {CD_HNSW_D} docs into {len(CD_HNSW_FIELDS)} fields: insert {t_insert:.2f} s, "
+        f"optimize (three graph builds) {t_opt:.2f} s")
+    recalls = {}
+    for f in CD_HNSW_FIELDS:
+        engine = _first_engine(col, f)
+        log(f"codes hnsw {f}: build " + ", ".join(f"{k} {v:.2f} s" for k, v in engine.build_times.items())
+            + f"; {engine.build_info}; search codes {engine._codes.dtype} {tuple(engine._codes.shape)}, dequant "
+            f"{engine._dequant}, int4 packed {engine._int4_packed}")
+        for ef in CD_EFS:
+            for refined in (False, True):
+                ids, _, batch_s = _timed_batch(col, f, queries, zt.HnswQueryParam(ef=ef, is_using_refiner=refined))
+                recalls[f, ef, refined] = _recall(ids, gi)
+            log(f"codes hnsw {f}: ef={ef}: recall@{K} raw {recalls[f, ef, False]:.4f}, refined "
+                f"{recalls[f, ef, True]:.4f} against the exact fp32 COSINE oracle over {Q} queries; refined "
+                f"{batch_s * 1e3:.2f} ms per batch (best of 2)")
+        _beam_check(engine, queries[:CD_CHECK_Q], f"codes hnsw {f}")
+    for ef, floor in CD_FLOORS.items():
+        if recalls["int8", ef, True] < floor:
+            raise AssertionError(f"codes hnsw int8: refined recall@10 at ef={ef} is "
+                                 f"{recalls['int8', ef, True]:.4f} < {floor}")
+    col._impl.close()
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def phase_codes(workdir: Path, dev: torch.device) -> int:
+    """FP16 / INT8 / INT4 codes on the three engines. Returns K1's launches
+    on the FLAT fields' scans."""
+    t0 = time.perf_counter()
+    launches = _codes_flat(workdir, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _codes_ivf(workdir, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _codes_hnsw(workdir, dev)
+    log(f"codes: flat {t1 - t0:.1f} s, ivf {t2 - t1:.1f} s, hnsw {time.perf_counter() - t2:.1f} s")
+    return launches
+
+
+def _hamming_oracle(xpm: torch.Tensor, qpm: torch.Tensor, k: int):
+    """Exact Hamming distances of the k nearest, from +-1 products on the
+    card (integers, exact in fp32): (distances (Q, k) ascending, ids)."""
+    s, i = _topk_chunks(qpm, lambda qb: (qb @ xpm.T - HM_BITS) * 0.5, k)
+    return -s, i
+
+
+def _popcount_check(xpm: torch.Tensor, packed: np.ndarray, qpacked: np.ndarray, dev: torch.device) -> None:
+    """The +-1 product oracle against popcounts of XORed code bytes on the
+    card, over every row, for HM_POPCOUNT_Q queries."""
+    lut = torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.int32, device=dev)
+    xb = torch.from_numpy(packed.view(np.uint8)).to(dev)
+    for r in range(HM_POPCOUNT_Q):
+        qb = torch.from_numpy(qpacked[r].view(np.uint8)).to(dev)
+        pop = lut[(xb ^ qb).long()].sum(1)
+        qpm = torch.from_numpy(np.unpackbits(qpacked[r].view(np.uint8), bitorder="little")).to(dev).float() * 2 - 1
+        ham = ((HM_BITS - xpm @ qpm) * 0.5).round().int()
+        if not torch.equal(pop, ham):
+            raise AssertionError("hamming: the +-1 product oracle disagrees with the popcount")
+
+
+def phase_hamming(workdir: Path, dev: torch.device) -> int:
+    """Binary codes: HM_BITS-bit VECTOR_BINARY32 fields, FLAT(HAMMING) over
+    HM_N rows (K1 on the +-1 codes) and HNSW(HAMMING) over the first
+    HM_HNSW_N, against an exact Hamming oracle on the card with tie-aware
+    recall (a hit is any id at a distance <= the k-th true distance). Returns
+    K1's launches on the FLAT field's queries."""
+    import zvec_tpu_torch as zt
+    from zvec_tpu_torch.ops import flat_scan as fs
+    from zvec_tpu_torch.ops.quantize import bits_to_pm1, pack_bits
+
+    t0 = time.perf_counter()
+    bits, qbits = hamming_data(HM_N, HM_NQ)
+    packed, qpacked = pack_bits(bits, 32), pack_bits(qbits, 32)
+    log(f"hamming: {HM_N} x {HM_BITS}-bit codes ({packed.shape[1]} uint32 words a row) and {HM_NQ} queries made "
+        f"in {time.perf_counter() - t0:.2f} s")
+    xpm = torch.from_numpy(bits).to(dev).float() * 2 - 1
+    qpm = torch.from_numpy(bits_to_pm1(qbits)).to(dev)
+    _popcount_check(xpm, packed, qpacked, dev)
+
+    def tie_recall(ids, scores, kth):
+        true = (qbits[:, None, :] != bits[ids]).sum(-1)
+        if not (scores == true).all():
+            raise AssertionError("hamming: a returned score is not the row's Hamming distance")
+        return float((true <= kth[:, None]).mean())
+
+    launches, recalls = 0, {}
+    for index, n in (("flat", HM_N), ("hnsw", HM_HNSW_N)):
+        kth = _hamming_oracle(xpm[:n], qpm, K)[0][:, K - 1].cpu().numpy()  # the k-th true distance
+        param = (zt.FlatIndexParam(zt.MetricType.HAMMING) if index == "flat"
+                 else zt.HnswIndexParam(zt.MetricType.HAMMING))
+        schema = zt.CollectionSchema(f"ham_{index}", vectors=[
+            zt.VectorSchema("code", zt.DataType.VECTOR_BINARY32, HM_BITS, param)])
+        path = workdir / f"ham_{index}"
+        col = zt.create_and_open(str(path), schema)
+        t_insert = _insert_all(col, n, lambda i: zt.Doc(id=str(i), vectors={"code": packed[i]}))
+        t0 = time.perf_counter()
+        col.optimize()
+        t_opt = time.perf_counter() - t0
+        col.flush()
+        engine = _first_engine(col, "code")
+        fs.flat_scan_topk.launches = 0
+        if index == "flat":
+            ids, scores, batch_s = _timed_batch(col, "code", qpacked, None)
+            launches = fs.flat_scan_topk.launches
+            recall = tie_recall(ids, scores, kth)
+            st = engine._st
+            log(f"hamming flat: {n} rows: insert {t_insert:.2f} s, optimize {t_opt:.2f} s; {batch_s * 1e3:.2f} ms "
+                f"per {HM_NQ}-query batch of packed queries (best of 2); tie-aware recall@{K} {recall:.6f}; codes "
+                f"{st.codes.dtype} {tuple(st.codes.shape)} (+-1); K1 launches {launches}")
+            if launches == 0 or recall != 1.0:
+                raise AssertionError("hamming flat: K1 was not launched, or the tie-aware recall is below 1.0")
+            # the card's answer against K1's plain version on the engine's codes, under the tie rule
+            mask = (torch.arange(st.n_pad, device=dev) < st.n).to(torch.int8)
+            ps, pi = fs.flat_scan_topk_plain(qpm, st.codes, st.norms, mask, metric=zt.MetricType.L2, topk=K)
+            bad, differ, err = _check_final_at_k(torch.from_numpy(-scores).float(), torch.from_numpy(ids),
+                                                 ps.cpu() * 0.25, pi.cpu(), rtol=0.0)
+            log(f"hamming flat: the card's answers vs K1's plain version on its codes: {differ} rows differ "
+                f"({bad} outside exact ties), max |dscore| {err:.3g}")
+            if bad or err:
+                raise AssertionError("hamming flat: the card's answers disagree with the plain version")
+            fs.flat_scan_topk.launches = launches
+        else:
+            bt = engine.build_times
+            log(f"hamming hnsw: {n} rows: insert {t_insert:.2f} s, optimize {t_opt:.2f} s: "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in bt.items()) + f"; {engine.build_info}")
+            for ef in HM_EFS:
+                ids, scores, batch_s = _timed_batch(col, "code", qpacked, zt.HnswQueryParam(ef=ef))
+                recalls[ef] = recall = tie_recall(ids, scores, kth)
+                log(f"hamming hnsw: ef={ef}: {batch_s * 1e3:.2f} ms per {HM_NQ}-query batch (best of 2); "
+                    f"tie-aware recall@{K} {recall:.4f}")
+            _beam_check(engine, bits_to_pm1(qbits[:BEAM_CHECK_Q]), "hamming hnsw")
+            if recalls[HM_EFS[-1]] < HM_HNSW_FLOOR:
+                raise AssertionError(f"hamming hnsw: tie-aware recall@10 at ef={HM_EFS[-1]} is "
+                                     f"{recalls[HM_EFS[-1]]:.4f} < {HM_HNSW_FLOOR}")
+        col._impl.close()
+        del col, engine
+        gc.collect()
+        shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
 def _lap_printer(label: str):
     """lap(name) prints a phase's wall seconds since the last lap, for the time limit."""
     t_run = time.perf_counter()
@@ -3033,6 +3850,26 @@ def run_group(phases: tuple, workdir: Path) -> dict:
         torch.cuda.empty_cache()
         launches.update(phase_mesh(workdir, dev, base))
         lap("mesh")
+    if "compact" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["compact_build"], cases["compact_rebuild_shape"] = phase_compact(workdir, dev, base)
+        lap("compact")
+    if "hamming" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["hamming_flat"] = phase_hamming(workdir, dev)
+        lap("hamming")
+    if "mips" in phases:
+        launches["mips_build"] = phase_mips(workdir, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("mips")
+    if "codes" in phases:
+        launches["codes_flat"] = phase_codes(workdir, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("codes")
     return dict(launches=launches, cases=cases)
 
 
@@ -3103,7 +3940,9 @@ def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
                 show(i, f"stopped (exit {procs[i].returncode})")
     # launches by path in the order of PHASES, whichever worker ended first
     order = {path: n for n, path in enumerate(("flat_search", "hnsw_build", "ivf", "hnsw_clustered_build",
-                                               "live", "cohere_build", "sparse", "fusion", "tools_flat"))}
+                                               "live", "cohere_build", "sparse", "fusion", "tools_flat",
+                                               "mesh_flat", "mesh_hnsw_build", "compact_build", "mips_build",
+                                               "codes_flat", "hamming_flat"))}
     merged["launches"] = dict(sorted(merged["launches"].items(), key=lambda kv: order.get(kv[0], len(order))))
     return merged
 
@@ -3117,10 +3956,12 @@ def main() -> None:
         phases = tuple(sys.argv[2].split(",")) if len(sys.argv) == 3 else ()
         if (sys.argv[1] != "--phases" or not phases or not set(phases) <= set(PHASES)
                 or ("mesh" in phases and not set(MESH_NEEDS) <= set(phases))
-                or ("live" in phases and not set(LIVE_NEEDS) <= set(phases))):
+                or ("live" in phases and not set(LIVE_NEEDS) <= set(phases))
+                or ("compact" in phases and not set(COMPACT_NEEDS) <= set(phases))):
             raise SystemExit(f"usage: chip_smoke.py [--phases {','.join(PHASES)}] "
-                             f"(mesh reopens the collections of {','.join(MESH_NEEDS)}, and live runs on "
-                             f"the collection of {','.join(LIVE_NEEDS)}: name them too)")
+                             f"(mesh reopens the collections of {','.join(MESH_NEEDS)}, live runs on "
+                             f"the collection of {','.join(LIVE_NEEDS)} and compact on that of "
+                             f"{','.join(COMPACT_NEEDS)}: name them too)")
     t_run = time.perf_counter()
     lap = _lap_printer("the start")
 
@@ -3128,12 +3969,15 @@ def main() -> None:
     phase_build()
     lap("build")
     case = build_case = cohere_case = None
+    new_cases = {}
     if "kernel" in phases:
         case = phase_kernel_vs_plain()
         torch.cuda.empty_cache()
         build_case = phase_kernel_build_shape()
         torch.cuda.empty_cache()
         cohere_case = phase_kernel_cohere_shape()
+        torch.cuda.empty_cache()
+        new_cases = phase_kernel_new_shapes()
         torch.cuda.empty_cache()
         lap("kernel")
     workdir = REPO / "zvec_tpu_torch" / "_build" / "smoke"
@@ -3166,6 +4010,8 @@ def main() -> None:
         "hnsw_build_shape": build_case,
         "cohere_build_shape": cohere_case,
         "live_writing_shape": cases.get("live_writing_shape"),
+        "compact_rebuild_shape": cases.get("compact_rebuild_shape"),
+        **new_cases,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

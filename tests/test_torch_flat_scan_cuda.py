@@ -160,15 +160,52 @@ def _check_stage1(args, kw):
 
 
 @pytest.mark.parametrize("nq", [1, 5, 70, 129])
-@pytest.mark.parametrize("d", [17, 40, 96, 100, 768])
+@pytest.mark.parametrize("d", [17, 40, 96, 100, 129, 201, 256, 768])
 @pytest.mark.parametrize("ctype", ["fp32", "fp16", "int8", "int4"])
 def test_kernel_ragged_d_and_q(cuda, ctype, d, nq):
     """Ragged contraction (D not a multiple of the 32-column chunk, rows not a
     multiple of 16 bytes) and ragged query blocks (Q not a multiple of 64);
-    D = 768 streams the query halves instead of keeping them resident."""
+    D above 128 streams the queries instead of keeping them resident: 129
+    (one column past the limit), 201 (the MIPS-augmented text2image rows),
+    256 (the +-1 HAMMING codes of 256 bits), 768."""
     metric = ["L2", "IP", "COSINE"][(d + nq) % 3]
     arrays, kw = _case(ctype, metric, n=2048, d=d, nq=nq, seed=d * 1000 + nq)
     _check_stage1(_to(cuda, arrays), kw)
+
+
+def test_kernel_mips_augmented_rows(cuda):
+    """The MIPS build's scan: rows of lognormal norm augmented to D = 201 by
+    sqrt(max |x|^2 - |x|^2), so every row has the same norm and the L2 key
+    cancels; k = 128 as the build asks."""
+    from zvec_tpu_torch.ops.quantize import mips_augment
+
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((8192, 200)).astype(np.float32)
+    x *= (rng.lognormal(0.0, 0.3, 8192) / np.linalg.norm(x, axis=1)).astype(np.float32)[:, None]
+    xa, _ = mips_augment(x)
+    q = np.ascontiguousarray(xa[:70])
+    mask = np.ones(8192, np.int8)
+    args = _to(cuda, (q, xa, (xa * xa).sum(1).astype(np.float32), mask))
+    _check_stage1(args, dict(metric=MetricType.L2, topk=128, dequant=None, int4_dim=None))
+
+
+def test_kernel_pm1_hamming_codes(cuda):
+    """+-1 codes of 256 bits (HAMMING fields scan as L2): every key is an
+    integer, so stage one equals its plain version exactly and the final ids
+    differ only among exact ties at the k-th distance."""
+    rng = np.random.default_rng(22)
+    x = (rng.integers(0, 2, (8192, 256)) * 2 - 1).astype(np.float32)
+    q = (rng.integers(0, 2, (70, 256)) * 2 - 1).astype(np.float32)
+    q_, x_, n_, m_ = _to(cuda, (q, x, (x * x).sum(1).astype(np.float32), np.ones(8192, np.int8)))
+    kw = dict(metric=MetricType.L2, topk=10, dequant=None, int4_dim=None)
+    ks, _ = fs.flat_scan_stage1(q_, x_, n_, m_, **kw)
+    ps, _ = fs.flat_scan_stage1(q_, x_, n_, m_, plain=True, **kw)
+    assert torch.equal(ks, ps)
+    fs_, fi = fs.flat_scan_topk(q_, x_, n_, m_, **kw)
+    gs, gi = fs.flat_scan_topk_plain(q_, x_, n_, m_, **kw)
+    assert torch.equal(fs_, gs)
+    full = -((q_[:, None, :] - x_[None, :, :]) ** 2).sum(-1)  # (70, 8192) exact integers
+    assert torch.equal(torch.gather(full, 1, fi), fs_)  # every returned id at its returned key
 
 
 @pytest.mark.parametrize("n,topk,tile", [

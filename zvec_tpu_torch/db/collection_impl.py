@@ -890,8 +890,6 @@ class CollectionImpl:
             raise ZvecError(
                 StatusCode.INVALID_ARGUMENT, f"unknown vector field '{field_name}'"
             )
-        if not vs.data_type.is_sparse_vector:
-            vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
         prof = Profiler(enabled=self.debug_profiling)
         segs = self._segments_snapshot()
         sims, ids = self.query_field(
@@ -972,16 +970,11 @@ class CollectionImpl:
                 StatusCode.INVALID_ARGUMENT, f"unknown vector field '{field_name}'"
             )
         segs = self._segments_snapshot()
-        prepped = []
-        for vectors in blocks:
-            if not vs.data_type.is_sparse_vector:
-                vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
-            prepped.append(vectors)
         finalizers = [
             self._query_field_dispatch(
                 field_name, vectors, topk, filter_str, param, None, segs
             )
-            for vectors in prepped
+            for vectors in blocks
         ]
         out = []
         for fin in finalizers:
