@@ -192,11 +192,20 @@ Phases (any failure raises, and the exit code is non-zero):
 
  3d. the same kernel at the shapes of phases 14 and 16, alone: the MIPS build
      (text2image-shaped rows augmented to D = 201 as ops/quantize.py's
-     mips_augment does, 1,000,448 rows, Q=2048 code rows, k=128, fp32 L2;
-     the rows share one norm, so ids swap among near-equal keys: each id is
-     held to its own exact key, computed in fp64) and the HAMMING FLAT scan (+-1 codes of 256 bits, 1,007,616 rows,
-     Q=1024, k=10, L2: integer keys, equal to the plain version's exactly,
-     ids compared under the exact tie rule)
+     mips_augment does, zero-padded to 204 columns as HnswEngine pads its
+     scan codes on the card, 1,000,448 rows, Q=2048 code rows, k=128, fp32
+     L2; the rows share one norm, so ids swap among near-equal keys: each id
+     is held to its own exact key, computed in fp64; then on the unpadded
+     804-byte rows, on 4-byte copies and on the byte loads they took before,
+     keys and ids bitwise those of the padded rows, and timed), the same for
+     HnswIndexParam()'s default IP build of phase 3c's Cohere rows (450,560
+     rows augmented to D = 769, padded to 772, Q=1024, k=128, run after 3c
+     on its rows), the
+     HAMMING FLAT scan (+-1 codes of 256 bits, 1,007,616 rows, Q=1024, k=10,
+     L2, in the one TF32 pass FlatEngine asks for, timed also in three:
+     integer keys, equal to the plain version's exactly, ids compared under
+     the exact tie rule) and FP16 codes at the GloVe-100 width (1,007,616 x
+     100 unit rows, COSINE, Q=1024, k=10, 8-byte copies; phase 3's rules)
  13. compact: phase 6's collection (after mesh) reopened, 100,000 random pks
      deleted and delete_by_filter('grp = 7'), then optimize: the doc count
      against a plain reference of the surviving pks, one sealed segment of
@@ -241,7 +250,8 @@ Phases (any failure raises, and the exit code is non-zero):
      the true distances, the FLAT answers against K1's plain version under
      the exact tie rule, the beam card against CPU
 
-Phases 3, 3b, 3c, 3d and 8c print, beside each stage-one time, its bound (the
+Phases 3, 3b, 3c, 3d and 8c print, beside each stage-one time, K1's path
+(the bytes of one code-row copy and its TF32 passes), its bound (the
 larger of the split-TF32 tensor-core work over 495 TFLOP/s and the bytes
 over 3.35 TB/s, with the FLOP and byte counts; one TF32 pass for the +-1
 HAMMING codes, which are exact in it), the roofline share (bound / time)
@@ -529,6 +539,39 @@ def _bound_text(b: dict, k_ms: float, lib_ms, lib_kind: str = "fp32") -> str:
             f"library {lib} (torch.matmul {lib_kind}, product only)")
 
 
+def _pad4(d: int) -> int:
+    """fp32 columns of 16-byte rows: HnswEngine's exact build pads its scan codes so on the card."""
+    return -(-d // 4) * 4
+
+
+def _k1_path(codes: torch.Tensor, exact: bool = False) -> dict:
+    """How K1 takes these codes: the bytes of one asynchronous copy of a code
+    row (ops/flat_scan.py::copy_bytes; 1 = byte loads) and its TF32 products
+    (one with `exact`, the +-1 codes' instance)."""
+    from zvec_tpu_torch.ops.flat_scan import copy_bytes
+
+    return dict(copy_bytes=copy_bytes(codes.shape[1] * codes.element_size(), codes.data_ptr()),
+                passes=1 if exact else 3 if codes.dtype == torch.float32 else 2)
+
+
+def _path_text(path: dict) -> str:
+    return f"copy {path['copy_bytes']} B, {path['passes']} TF32 pass{'es' if path['passes'] > 1 else ''}"
+
+
+@contextlib.contextmanager
+def _copy_forced(width: int):
+    """K1's code copies forced to `width` bytes (an earlier path, timed beside
+    the current one in the same run)."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    prev = fs.copy_bytes
+    fs.copy_bytes = lambda row_bytes, ptr: width
+    try:
+        yield
+    finally:
+        fs.copy_bytes = prev
+
+
 def phase_toolchain() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -659,8 +702,9 @@ def phase_kernel_vs_plain() -> dict:
             p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **kw))
             kf_ms = time_ms(lambda: fs.flat_scan_topk(*args, **kw))
             pf_ms = time_ms(lambda: fs.flat_scan_topk_plain(*args, **kw))
+            path = _k1_path(codes)
             log(
-                f"kernel {ctype:>4} {metric:<6} mask={'30%' if mask is sparse else 'none'}: "
+                f"kernel {ctype:>4} {metric:<6} mask={'30%' if mask is sparse else 'none'} ({_path_text(path)}): "
                 f"stage1 max|dkey| {s1_err:.3g} id swaps {swaps:.2e}; final rows differing "
                 f"{differ} (outside ties {bad}) max|dscore| {final_err:.3g}; "
                 f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
@@ -672,7 +716,7 @@ def phase_kernel_vs_plain() -> dict:
             if (ctype, metric) == ("fp32", "L2"):
                 main_case = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms,
                                  bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                                 library_ms=case_lib_ms, roofline=bound["bound_ms"] / k_ms)
+                                 library_ms=case_lib_ms, roofline=bound["bound_ms"] / k_ms, **path)
             del codes, norms
     return main_case
 
@@ -830,7 +874,7 @@ def _own_final_scores(ks, ki, ps, q, x, norms, width):
 
 
 def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, lib_ms,
-                       own_width=None) -> dict:
+                       own_width=None, unpadded_d=None) -> dict:
     """K1 against its plain version where the HNSW build calls it
     (`ops/hnsw.py::knn_build_step`: the queries are code rows, each finds
     itself): stage one and the final top-K_BUILD under phase 3b's
@@ -841,7 +885,13 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
     |x|^2) ids are held by their own keys instead of by the share that
     moved: every stage-one id carries its group's exact key within stage
     one's tolerances, and every final id its own exact score, at the plain
-    version's score of the same rank, within `own_width`."""
+    version's score of the same rank, within `own_width`.
+
+    With `unpadded_d` (x and q are the build's scan codes, zero-padded from
+    unpadded_d columns to 16-byte rows, as HnswEngine pads a MIPS build on
+    the card) stage one on the unpadded rows, on their 4-byte copies and on
+    byte loads (the path before), must give the same keys and ids bit for
+    bit, and both are timed."""
     from zvec_tpu_torch.ops import flat_scan as fs
     from zvec_tpu_torch.typing import MetricType
 
@@ -854,6 +904,19 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
     s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
     moved = ti_k != ti_p
     swaps = float(moved.float().mean())
+    unpadded = {}
+    if unpadded_d is not None:
+        xu, qu = x[:, :unpadded_d].contiguous(), q[:, :unpadded_d].contiguous()
+        uargs = (qu, xu, norms, mask)
+        for width in (None, 1):
+            with contextlib.nullcontext() if width is None else _copy_forced(width):
+                us, ui = fs.flat_scan_stage1(*uargs, **kw)
+                if not (torch.equal(us, ts_k) and torch.equal(ui, ti_k)):
+                    raise AssertionError(f"{label}: stage one on the unpadded rows differs from the padded one "
+                                         f"(copy {width or _k1_path(xu)['copy_bytes']} B)")
+                key = f"unpadded_copy{width or _k1_path(xu)['copy_bytes']}_ms"
+                unpadded[key] = time_ms(lambda: fs.flat_scan_stage1(*uargs, **kw))
+        del xu, qu, uargs, us, ui
     if own_width is None:
         ids_ok, s1_text = swaps <= STAGE1_MAX_ID_SWAPS, f"id swaps {swaps:.2e}"
     else:
@@ -881,17 +944,20 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
     p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **kw))
     kf_ms = time_ms(lambda: fs.flat_scan_topk(*args, **kw))
     pf_ms = time_ms(lambda: fs.flat_scan_topk_plain(*args, **kw))
+    path = _k1_path(x)
     log(
-        f"kernel {label} fp32 {metric:<6} N={x.shape[0]} D={x.shape[1]} Q={q.shape[0]} k={K_BUILD}: "
-        f"stage1 max|dkey| {s1_err:.3g} {s1_text}; {final_text}; "
-        f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
+        f"kernel {label} fp32 {metric:<6} N={x.shape[0]} D={x.shape[1]} Q={q.shape[0]} k={K_BUILD} "
+        f"({_path_text(path)}): stage1 max|dkey| {s1_err:.3g} {s1_text}; {final_text}; "
+        f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms"
+        + "".join(f"; on the {unpadded_d} unpadded columns, keys and ids bitwise the same, "
+                  f"{k.split('_')[1][4:]}-byte copies {v:.3f} ms" for k, v in unpadded.items()) + "; "
         f"full scan {kf_ms:.3f} ms vs plain {pf_ms:.3f} ms; " + _bound_text(bound, k_ms, lib_ms)
     )
     if not (s1_ok and ids_ok and bad == 0 and finite):
         raise AssertionError(f"kernel disagrees with plain version at the {label}: {metric}")
     return dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, full_ms=kf_ms, full_plain_ms=pf_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
-                roofline=bound["bound_ms"] / k_ms)
+                roofline=bound["bound_ms"] / k_ms, **path, **unpadded)
 
 
 def phase_kernel_build_shape() -> dict:
@@ -2220,10 +2286,14 @@ def cohere_corpus():
     return X, cohere_queries(centers)
 
 
-def phase_kernel_cohere_shape() -> dict:
+def phase_kernel_cohere_shape() -> tuple:
     """K1 where the Cohere build calls it, on the deployment's own rows: 1024
     code rows a scan, k 128, fp32 COSINE at D = 768 (taken here, alone on the
-    card, for its times)."""
+    card, for its times); then where HnswIndexParam()'s default IP build of
+    the same rows calls it (phase 3d): the rows MIPS-augmented to D = 769 as
+    ops/quantize.py's mips_augment does and padded to 772 columns as
+    HnswEngine pads its scan codes, fp32 L2, held by each id's own key as the
+    MIPS build shape is, then timed on the unpadded 3076-byte rows."""
     from zvec_tpu_torch.ops import flat_scan as fs
 
     dev = torch.device("cuda")
@@ -2235,8 +2305,20 @@ def phase_kernel_cohere_shape() -> dict:
     bound = _bound(CO_Q_BUILD, CO_N_PAD, CO_D, K_BUILD, fs.pick_tile(CO_N_PAD, K_BUILD), x)
     k1 = _k1_at_build_shape(x, mask, q, x.norm(dim=1), "COSINE", "cohere build shape", bound,
                             _library_ms(q, x))
-    del x, mask, q
-    return k1
+    del q
+    xa = torch.zeros((CO_N_PAD, _pad4(CO_D + 1)), device=dev)  # as HnswEngine pads its scan codes
+    xa[:, :CO_D] = x
+    del x
+    sq = (xa * xa).sum(1)
+    xa[:CO_N, CO_D] = torch.sqrt(torch.clamp(sq[:CO_N].max() - sq[:CO_N], min=0.0))
+    norms = (xa * xa).sum(1)
+    q = xa[:CO_Q_BUILD].contiguous()
+    bound = _bound(CO_Q_BUILD, CO_N_PAD, CO_D + 1, K_BUILD, fs.pick_tile(CO_N_PAD, K_BUILD), xa[:, : CO_D + 1])
+    ip = _k1_at_build_shape(xa, mask, q, norms, "L2", "cohere default-IP build shape", bound,
+                            _library_ms(q[:, : CO_D + 1], xa[:, : CO_D + 1]),
+                            own_width=TIE_RTOL * (norms[:CO_Q_BUILD] + norms.max()), unpadded_d=CO_D + 1)
+    del xa, mask, q, sq, norms
+    return k1, ip
 
 
 def phase_cohere(workdir: Path, dev: torch.device) -> int:
@@ -3234,10 +3316,15 @@ def _reopen_check(path: Path, field: str, queries: np.ndarray, param, want: np.n
 
 
 def phase_kernel_new_shapes() -> dict:
-    """K1 at the shapes this matrix adds, alone on the card: the MIPS build
-    (the text2image rows augmented to D = 201, 2048 code rows a scan, k 128,
-    fp32 L2) and the HAMMING FLAT scan (+-1 codes of 256 bits, Q 1024, k 10,
-    L2, every key an integer: ids compared under the tie rule)."""
+    """K1 at the shapes the matrix adds, alone on the card: the MIPS build
+    (the text2image rows augmented to D = 201 and padded to 204 columns, as
+    the build scans them on the card, 2048 code rows a scan, k 128, fp32 L2;
+    then on the unpadded 804-byte rows, by 4-byte copies and by the byte
+    loads they took before), the HAMMING FLAT scan (+-1 codes of 256 bits, Q 1024,
+    k 10, L2, the one-pass instance the engine asks for, also timed in three
+    passes; every key an integer, equal to the plain version's, ids compared
+    under the tie rule) and the FP16 FLAT scan at the GloVe-100 width
+    (200-byte rows on 8-byte copies)."""
     from zvec_tpu_torch.ops import flat_scan as fs
     from zvec_tpu_torch.typing import MetricType
 
@@ -3249,19 +3336,20 @@ def phase_kernel_new_shapes() -> dict:
     x += torch.randn((MI_N, MI_D), generator=g, device=dev)
     x *= torch.exp(MI_NORM_SIGMA * torch.randn((MI_N, 1), generator=g, device=dev)) / x.norm(dim=1, keepdim=True)
     sq = (x * x).sum(1)
-    xa = torch.zeros((N_BUILD_PAD, MI_D + 1), device=dev)
+    xa = torch.zeros((N_BUILD_PAD, _pad4(MI_D + 1)), device=dev)  # as HnswEngine pads its scan codes
     xa[:MI_N, :MI_D] = x
     xa[:MI_N, MI_D] = torch.sqrt(torch.clamp(sq.max() - sq, min=0.0))  # ops/quantize.py::mips_augment
     del x, sq, centers
     mask = (torch.arange(N_BUILD_PAD, device=dev) < MI_N).to(torch.int8)
     q = xa[:Q_BUILD].contiguous()
-    bound = _bound(Q_BUILD, N_BUILD_PAD, MI_D + 1, K_BUILD, fs.pick_tile(N_BUILD_PAD, K_BUILD), xa)
+    bound = _bound(Q_BUILD, N_BUILD_PAD, MI_D + 1, K_BUILD, fs.pick_tile(N_BUILD_PAD, K_BUILD), xa[:, : MI_D + 1])
     norms = (xa * xa).sum(1)
     # -(|q|^2 + |x|^2 - 2 q.x) cancels: every augmented row has |x|^2 = max
     # |x|^2, so a score is good to a few ulps of |q|^2 + max |x|^2, not of itself
     width = TIE_RTOL * (norms[:Q_BUILD] + norms.max())
     out = {"mips_build_shape": _k1_at_build_shape(xa, mask, q, norms, "L2", "mips build shape", bound,
-                                                  _library_ms(q, xa), own_width=width)}
+                                                  _library_ms(q[:, : MI_D + 1], xa[:, : MI_D + 1]),
+                                                  own_width=width, unpadded_d=MI_D + 1)}
     del xa, q, mask, norms
     torch.cuda.empty_cache()
 
@@ -3276,7 +3364,7 @@ def phase_kernel_new_shapes() -> dict:
     del rows, qb, centers
     mask = (torch.arange(HM_N_PAD, device=dev) < HM_N).to(torch.int8)
     norms = (x * x).sum(1)
-    kw = dict(metric=MetricType.L2, topk=K)
+    kw = dict(metric=MetricType.L2, topk=K, exact_tf32=True)  # as FlatEngine asks for +-1 codes
     args = (q, x, norms, mask)
     ts_k, _ = fs.flat_scan_stage1(*args, **kw)
     ts_p, _ = fs.flat_scan_stage1(*args, plain=True, **kw)
@@ -3288,23 +3376,74 @@ def phase_kernel_new_shapes() -> dict:
     bad, differ, final_err = _check_final_at_k(ks, ki, ps, pi, rtol=0.0)
     k_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **kw))
     p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **kw))
+    three_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **{**kw, "exact_tf32": False}))
     bound = _bound(Q, HM_N_PAD, HM_BITS, K, fs.pick_tile(HM_N_PAD, K), x, one_pass=True)
+    path = _k1_path(x, exact=True)
     with _tf32(False):
         full = q @ x[:65536].T
     with _tf32(True):  # +-1 products and their sums (|.| <= 256) are exact in one TF32 pass
         tf32_exact = torch.equal(q @ x[:65536].T, full)
     del full
     lib_ms = _library_ms(q, x, tf32=True)
-    log(f"kernel hamming shape fp32 L2 on +-1 codes N={HM_N_PAD} D={HM_BITS} Q={Q} k={K}: stage1 max|dkey| "
-        f"{s1_err:.3g}; final rows differing {differ} (outside exact ties {bad}) max|dscore| {final_err:.3g}; "
-        f"stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; TF32 product equal to the fp32 one on 65,536 rows "
-        f"{tf32_exact}; " + _bound_text(bound, k_ms, lib_ms, "TF32, exact here"))
+    log(f"kernel hamming shape fp32 L2 on +-1 codes N={HM_N_PAD} D={HM_BITS} Q={Q} k={K} ({_path_text(path)}): "
+        f"stage1 max|dkey| {s1_err:.3g}; final rows differing {differ} (outside exact ties {bad}) max|dscore| "
+        f"{final_err:.3g}; stage1 {k_ms:.3f} ms (three passes {three_ms:.3f} ms) vs plain {p_ms:.3f} ms; TF32 "
+        f"product equal to the fp32 one on 65,536 rows {tf32_exact}; "
+        + _bound_text(bound, k_ms, lib_ms, "TF32, exact here"))
     if s1_err != 0.0 or bad or final_err != 0.0 or not tf32_exact:
         raise AssertionError("kernel disagrees with plain version at the hamming shape")
     out["hamming_flat_shape"] = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound["bound_ms"],
-                                     bound_by=bound["bound_by"], library_ms=lib_ms, roofline=bound["bound_ms"] / k_ms)
+                                     bound_by=bound["bound_by"], library_ms=lib_ms, roofline=bound["bound_ms"] / k_ms,
+                                     three_pass_ms=three_ms, **path)
     del x, q, mask, norms, args
+    torch.cuda.empty_cache()
+    out["fp16_glove_flat_shape"] = _k1_fp16_glove_shape(g)
     return out
+
+
+def _k1_fp16_glove_shape(g: torch.Generator) -> dict:
+    """K1 on FP16 codes of the GloVe-100 width (config #3's D = 100, COSINE:
+    unit rows stored in fp16, 200-byte rows on 8-byte copies) over N_PAD rows,
+    Q 1024, k 10, as FlatEngine scans an FP16 field: stage one and the final
+    top-k under phase 3's rules, then the times (no library call: the codes
+    would widen first)."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+    from zvec_tpu_torch.typing import MetricType
+
+    dev = torch.device("cuda")
+    x = torch.randn((N_PAD, CD_HNSW_D), generator=g, device=dev)
+    x[N:] = 0.0
+    x = torch.nn.functional.normalize(x, dim=1)  # unit rows; the padding stays zero
+    q = torch.randn((Q, CD_HNSW_D), generator=g, device=dev)
+    codes, norms, _ = _make_codes(x, "fp16", "COSINE")
+    del x
+    mask = (torch.arange(N_PAD, device=dev) < N).to(torch.int8)
+    kw = dict(metric=MetricType.COSINE, topk=K)
+    args = (q, codes, norms, mask)
+    ts_k, ti_k = fs.flat_scan_stage1(*args, **kw)
+    ts_p, ti_p = fs.flat_scan_stage1(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    s1_err = float((ts_k - ts_p).abs().max())
+    s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
+    swaps = float((ti_k != ti_p).float().mean())
+    del ts_k, ti_k, ts_p, ti_p
+    ks, ki = fs.flat_scan_topk(*args, **kw)
+    ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
+    bad, differ, final_err = _check_final(ks, ki, ps, pi)
+    finite = bool(torch.isfinite(ks).all()) and bool((ki >= 0).all())
+    k_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **kw))
+    p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **kw))
+    bound = _bound(Q, N_PAD, CD_HNSW_D, K, fs.pick_tile(N_PAD, K), codes)
+    path = _k1_path(codes)
+    log(f"kernel fp16 GloVe-100 shape COSINE N={N_PAD} D={CD_HNSW_D} Q={Q} k={K} ({_path_text(path)}): stage1 "
+        f"max|dkey| {s1_err:.3g} id swaps {swaps:.2e}; final rows differing {differ} (outside ties {bad}) "
+        f"max|dscore| {final_err:.3g}; stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
+        + _bound_text(bound, k_ms, None))
+    if not (s1_ok and swaps <= STAGE1_MAX_ID_SWAPS and bad == 0 and finite):
+        raise AssertionError("kernel disagrees with plain version at the fp16 GloVe-100 shape")
+    del codes, norms, mask, q, args
+    return dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                library_ms=None, roofline=bound["bound_ms"] / k_ms, **path)
 
 
 def phase_mips(workdir: Path, dev: torch.device) -> int:
@@ -3968,14 +4107,14 @@ def main() -> None:
     smi = phase_toolchain()
     phase_build()
     lap("build")
-    case = build_case = cohere_case = None
+    case = build_case = cohere_case = cohere_ip_case = None
     new_cases = {}
     if "kernel" in phases:
         case = phase_kernel_vs_plain()
         torch.cuda.empty_cache()
         build_case = phase_kernel_build_shape()
         torch.cuda.empty_cache()
-        cohere_case = phase_kernel_cohere_shape()
+        cohere_case, cohere_ip_case = phase_kernel_cohere_shape()
         torch.cuda.empty_cache()
         new_cases = phase_kernel_new_shapes()
         torch.cuda.empty_cache()
@@ -4009,6 +4148,7 @@ def main() -> None:
         "roofline": case["roofline"],
         "hnsw_build_shape": build_case,
         "cohere_build_shape": cohere_case,
+        "cohere_ip_build_shape": cohere_ip_case,
         "live_writing_shape": cases.get("live_writing_shape"),
         "compact_rebuild_shape": cases.get("compact_rebuild_shape"),
         **new_cases,

@@ -267,3 +267,93 @@ def test_kernel_ties_to_lower_lane_at_k128(cuda):
     assert (ki == pi).all() and torch.equal(ks, ps)
     lanes = torch.arange(128, device=cuda, dtype=torch.int32)
     assert (ki[0] == lanes[:, None]).all()
+
+
+# (code type, D, the copy width its rows take): ragged fp32 rows (the MIPS
+# build's D = 201, the default-IP Cohere build's 769, a short 33), the GloVe-100
+# width in fp16 and int8, an odd width in each, packed int4 of D = 201
+RAGGED_ROWS = [("fp32", 201, 4), ("fp32", 769, 4), ("fp32", 33, 4), ("fp16", 100, 8),
+               ("fp16", 101, 1), ("int8", 100, 4), ("int8", 101, 1), ("int4", 201, 1)]
+
+
+@pytest.mark.parametrize("topk", [10, 128])
+@pytest.mark.parametrize("ctype,d,width", RAGGED_ROWS)
+def test_kernel_ragged_rows_by_copy_width(cuda, ctype, d, width, topk):
+    """Rows that are not a multiple of 16 bytes reach the ring by 8- or
+    4-byte asynchronous copies, or byte loads where the stride is not a
+    multiple of 4 bytes; the int8 and int4 cases carry their dequant."""
+    metric = ["L2", "IP", "COSINE"][d % 3]
+    arrays, kw = _case(ctype, metric, n=8192, d=d, nq=70, seed=d + topk)
+    args = _to(cuda, arrays)
+    codes = args[1]
+    assert fs.copy_bytes(codes.shape[1] * codes.element_size(), codes.data_ptr()) == width
+    _check_stage1(args, {**kw, "topk": topk})
+
+
+@pytest.mark.parametrize("ctype,d", [("fp32", 202), ("fp16", 100), ("int8", 104)])
+@pytest.mark.parametrize("forced", [4, 1])
+def test_kernel_copy_width_leaves_keys_bitwise(cuda, monkeypatch, ctype, d, forced):
+    """How the bytes reach shared memory changes nothing else: keys and ids
+    with the copy width forced narrower equal those of the widest (8 bytes
+    here) bit for bit."""
+    arrays, kw = _case(ctype, "L2", n=8192, d=d, nq=70, seed=d)
+    args = _to(cuda, arrays)
+    codes = args[1]
+    assert fs.copy_bytes(codes.shape[1] * codes.element_size(), codes.data_ptr()) == 8
+    ks, ki = fs.flat_scan_stage1(*args, **kw)
+    monkeypatch.setattr(fs, "copy_bytes", lambda row_bytes, ptr: forced)
+    fks, fki = fs.flat_scan_stage1(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, fks) and torch.equal(ki, fki)
+
+
+def test_kernel_refuses_a_copy_width_the_rows_do_not_allow(cuda, monkeypatch):
+    """16-byte copies of 804-byte rows: the entry point returns
+    cudaErrorInvalidValue and the wrapper raises, counting no launch."""
+    arrays, kw = _case("fp32", "L2", n=2048, d=201, nq=5)
+    args = _to(cuda, arrays)
+    monkeypatch.setattr(fs, "copy_bytes", lambda row_bytes, ptr: 16)
+    before = fs.flat_scan_topk.launches
+    with pytest.raises(RuntimeError, match="cudaError 1 "):
+        fs.flat_scan_stage1(*args, **kw)
+    assert fs.flat_scan_topk.launches == before
+
+
+def test_kernel_misaligned_codes_view(cuda):
+    """Codes that start 4 bytes into their storage: 4-byte copies of 512-byte
+    rows, the same answer as the plain version."""
+    arrays, kw = _case("fp32", "IP", n=4096, d=128, nq=70, seed=9)
+    q, codes, norms, mask = _to(cuda, arrays)
+    base = torch.empty(codes.numel() + 1, device=cuda)
+    view = base[1:].view(codes.shape)
+    view.copy_(codes)
+    assert view.data_ptr() % 16 == 4 and fs.copy_bytes(512, view.data_ptr()) == 4
+    _check_stage1((q, view, norms, mask), kw)
+
+
+@pytest.mark.parametrize("d", [96, 256, 264, 512])
+def test_kernel_one_pass_on_pm1_codes(cuda, d):
+    """The one-TF32-product instance (`exact_tf32`) on +-1 codes and queries,
+    with zero rows padding both as the engines pad them and a mask: the keys,
+    ids and final top-k equal the plain fp32 version's exactly. D = 256 keeps
+    the queries resident, 264 and 512 stream them."""
+    rng = np.random.default_rng(d)
+    n, nq = 16384, 130
+    x = (rng.integers(0, 2, (n, d)) * 2 - 1).astype(np.float32)
+    x[n - 700:] = 0.0
+    q = (rng.integers(0, 2, (nq, d)) * 2 - 1).astype(np.float32)
+    q[nq - 3:] = 0.0
+    mask = (np.arange(n) < n - 700).astype(np.int8)
+    mask[rng.random(n) < 0.2] = 0
+    args = _to(cuda, (q, x, (x * x).sum(1).astype(np.float32), mask))
+    for topk in (10, 128):
+        kw = dict(metric=MetricType.L2, topk=topk, exact_tf32=True)
+        before = fs.flat_scan_topk.launches
+        ks, ki = fs.flat_scan_stage1(*args, **kw)
+        assert fs.flat_scan_topk.launches == before + 1
+        ps, pi = fs.flat_scan_stage1(*args, plain=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ks, ps) and torch.equal(ki, pi)
+        fs_, fi = fs.flat_scan_topk(*args, **kw)
+        gs, gi = fs.flat_scan_topk_plain(*args, **kw)
+        assert torch.equal(fs_, gs) and torch.equal(fi, gi)

@@ -11,7 +11,8 @@ keys within rtol 1e-4 / atol 1e-3, group-id swaps at most 1e-3 (swaps between
 keys within 1e-6 relative, float32 near-ties, not counted), final id sets
 equal except where the k-th and (k+1)-th plain scores lie within 1e-5
 relative. It also shows that one unsplit TF32 pass misses the key tolerance on
-the same data, so the split is needed.
+the same data, so the split is needed, and that the one pass the kernel runs
+with `exact_tf32` (+-1 codes against +-1 queries) gives the plain keys exactly.
 """
 
 import os
@@ -66,13 +67,14 @@ def emulated_dots(q_kern, codes_f32, fp32_codes, split=True):
 
 
 def emulated_stage1(q_kern, qside, qsum, codes, knorm, mask, *, metric, topk,
-                    tile_n, scale, bias, int4, split=True):
+                    tile_n, scale, bias, int4, exact_tf32=False, split=True):
     """Stage one with the kernel's products: the (n_tiles, topk, Q) group keys
-    and ids of the contract in `csrc/flat_scan.cu`."""
+    and ids of the contract in `csrc/flat_scan.cu` (one TF32 product with
+    exact_tf32, as its one-pass instance)."""
     n, nq = codes.shape[0], q_kern.shape[0]
     n_tiles, group = n // tile_n, tile_n // 128
     dots = emulated_dots(q_kern, fs._codes_f32(codes, int4),
-                         codes.dtype == torch.float32, split)
+                         codes.dtype == torch.float32, split and not exact_tf32)
     nrm = knorm[None, :]
     if metric == MetricType.IP:
         key = dots
@@ -198,3 +200,34 @@ def test_tf32_rounding_is_rna():
     assert got[4] == pytest.approx(3.0e-39, rel=2.0**-10)
     big = tf32(x)
     assert torch.equal(tf32(big), big)
+
+
+@pytest.mark.parametrize("d", [256, 96])
+@pytest.mark.parametrize("kind", ["pm1", "gaussian"])
+def test_one_tf32_pass_exact_only_on_pm1(kind, d, monkeypatch):
+    """One TF32 product (the kernel's `exact_tf32` instance) on +-1 codes and
+    queries: every product and sum is an integer held exactly, so the
+    stage-one keys and ids equal the plain fp32 version's bit for bit, and so
+    does the final top-k. On gaussian rows the same one pass gives other
+    keys, which is why the wrapper takes the flag for +-1 codes only."""
+    rng = np.random.default_rng(d)
+    n = 4096
+    if kind == "pm1":
+        x = (rng.integers(0, 2, (n, d)) * 2 - 1).astype(np.float32)
+        q = (rng.integers(0, 2, (Q, d)) * 2 - 1).astype(np.float32)
+    else:
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((Q, d)).astype(np.float32)
+    mask = (rng.random(n) > 0.3).astype(np.int8)
+    args = [torch.from_numpy(a) for a in (q, x, (x * x).sum(1), mask)]
+    _, _, kargs, kkw = fs._prepare(*args, MetricType.L2, 10, None, None, kind == "pm1")
+    es, ei = emulated_stage1(*kargs, **{**kkw, "exact_tf32": True})
+    ps, pi = fs._stage1_plain(*kargs, **kkw)
+    if kind == "gaussian":
+        assert not torch.equal(es, ps)
+        return
+    assert torch.equal(es, ps) and torch.equal(ei, pi)
+    gs, gi = fs.flat_scan_topk_plain(*args, metric=MetricType.L2, topk=10, exact_tf32=True)
+    monkeypatch.setattr(fs, "_stage1", lambda a, w, plain: emulated_stage1(*a, **w))
+    ks, ki = fs.flat_scan_topk(*args, metric=MetricType.L2, topk=10, exact_tf32=True)
+    assert torch.equal(ks, gs) and torch.equal(ki, gi)

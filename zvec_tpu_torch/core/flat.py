@@ -270,6 +270,7 @@ class FlatEngine(VectorIndexEngine):
                 x_sq_norms=st.norms,
                 dequant=st.dequant,
                 int4_packed=st.int4_packed,
+                exact_tf32=self._hamming or self._binary_codes,
             )
             return ("scan", st, sims, idx, nq, topk, use_refiner, orig_queries)
         q_dev = torch.from_numpy(q).to(st.codes.device)
@@ -288,6 +289,8 @@ class FlatEngine(VectorIndexEngine):
                 topk=k,
                 dequant=st.dequant,
                 int4_dim=q.shape[1] if st.int4_packed else None,
+                # +-1 codes and queries: one TF32 product is exact
+                exact_tf32=self._hamming or self._binary_codes,
             )
         else:
             sims, idx = blockwise_topk_search(

@@ -538,12 +538,19 @@ class HnswEngine(VectorIndexEngine):
                 )
                 c32 = codes_p[lo:hi].astype(np.float32)
                 norms_p[lo:hi] = np.einsum("ij,ij->i", c32, c32)
-            codes_dev = _to_dev(codes_p, dev)
+            codes_dev = scan_codes = _to_dev(codes_p, dev)
         else:
-            codes_p = np.zeros((n_pad, d), np.float32)
-            codes_p[:n] = data
+            # K1 copies code rows of a multiple of 16 bytes in 16-byte units;
+            # rows of D % 4 != 0 fp32 columns (the D + 1 of a MIPS-augmented
+            # build) would take 4- or 8-byte copies, so on the card the exact
+            # build's scan reads the codes zero-padded to a multiple of 4
+            # columns (the same keys) and every other step the unpadded view
+            width = round_up(d, 4) if (use_kernel and not clustered and _on_card()) else d
+            codes_p = np.zeros((n_pad, width), np.float32)
+            codes_p[:n, :d] = data
             norms_p[:n] = norms2
-            codes_dev = _to_dev(codes_p, dev, torch.bfloat16 if build_bf16 else None)
+            scan_codes = _to_dev(codes_p, dev, torch.bfloat16 if build_bf16 else None)
+            codes_dev = scan_codes[:, :d]
         mask_p = np.zeros(n_pad, np.int8)
         mask_p[:n] = 1
         norms_dev = _to_dev(norms_p, dev)
@@ -616,8 +623,10 @@ class HnswEngine(VectorIndexEngine):
             # ---- forward pass: exact kNN + prune ----
             adj = torch.full((n, max_out), -1, dtype=torch.int32, device=dev)
             for bi in range(nb):
+                # a hamming graph builds on its +-1 codes, exact in one TF32 product
                 knn_build_step(rows_dev[bi], codes_dev, norms_dev, mask_dev, adj,
-                               knn_k=knn_k, use_kernel=use_kernel, **kw)
+                               knn_k=knn_k, use_kernel=use_kernel, exact_tf32=self._hamming,
+                               scan_codes=scan_codes, **kw)
             fwd = adj.cpu().numpy()
             del adj
             t1 = _lap(times, "forward_knn", t0)

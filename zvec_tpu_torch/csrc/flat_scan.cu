@@ -32,6 +32,11 @@
 // int8 and int4 codes are exact in TF32 (11-bit significand, fp32 exponent),
 // so they take two products, q_big*c + q_small*c. The bound is three (or two)
 // TF32 passes at the tensor cores' 495 TFLOP/s: 1.6 ms at the FLAT shape.
+// Where both operands are exact in TF32 and every sum is an integer below
+// 2^24 (the +-1 codes of a HAMMING or BINARY field against +-1 queries), one
+// product, q_big*c_big, gives the fp32 keys exactly: the one-pass instance
+// (fp32 codes, L2, `exact` at the entry point) keeps no small halves at all,
+// so its query tiles stay resident up to D = 256.
 //
 // Route: wgmma (m64n128k8 tf32), the full-rate route; mma.sync's TF32 rate
 // on an H100 is well below it (`csrc/probes/tf32_rate.cu` measures both). The
@@ -48,18 +53,32 @@
 // sub-tile against all 128 queries, in contraction chunks of 32 columns, so
 // any D works (the ragged D edge is zero-filled on both sides). Each
 // warpgroup streams its own half of the code rows through its own 4-stage
-// cp.async ring (deeper rings ran slower on the H100) and synchronises on its
-// own named barrier, so the two take turns on the tensor cores; within a
-// warpgroup, the fragments of the next
-// chunk are loaded and split into a second register set while the current
-// chunk's products run. The (64 x 128) accumulator and the running
-// group-max stay in registers in wgmma's layout; the rank-key epilogue and
-// the mask fold into the group-max after each sub-tile. The query tiles stay
-// resident in shared memory when they fit (D <= 128); otherwise each
-// warpgroup streams them with its code chunks (a 2-stage ring). Rows whose
-// length is not a multiple of 16 bytes are copied by plain loads. The query
-// blocks of one tile are launched next to each other, so that the tile's
-// codes come from L2 after the first.
+// cp.async ring (deeper rings ran slower on the H100; 6 stages in one pass)
+// and, while the query
+// tiles stay resident in shared memory (D <= 128 split, D <= 256 in one
+// pass), synchronises on its own named barrier, so the two take turns on the
+// tensor cores. Within a warpgroup, the fragments of the next chunk are
+// loaded and split into another register set while the current chunk's
+// products run (four sets in one pass, so that three chunks' products stay
+// in flight). Above those widths the query
+// tiles stream through one ring that both warpgroups share, each
+// thread copying its share of a chunk's tiles, under a block barrier: the
+// tiles are four times the bytes of the codes they meet, so each warpgroup
+// streaming its own copy made the scan bound by L2. The (64 x 128)
+// accumulator and the running group-max stay in registers in wgmma's
+// layout; the rank-key epilogue and the mask fold into the group-max after
+// each sub-tile. The query blocks of one tile are launched next to each
+// other, so that the tile's codes come from L2 after the first.
+//
+// Code copies: the ring is filled by cp.async of the widest size that the
+// row stride and the base pointer allow (`copy`: 16 bytes by cp.async.cg,
+// 8 or 4 by cp.async.ca), each copy zero-filling what lies past its row's end
+// (the src-size form), so a ragged row (804 bytes: the D + 1 columns of the
+// MIPS augmentation) lands in the same swizzled slot, byte for byte, as a
+// 16-byte one would; only strides that are not a multiple of 4 bytes (fp16
+// with odd D, int8 with D % 4 != 0, packed int4 with LD % 4 != 0) take
+// synchronous byte loads. TMA is not used: a tensor map needs global strides
+// that are multiples of 16 bytes, which such rows are not.
 //
 // Extraction: a query's 128 (key, lane) pairs become 64-bit rank words (the
 // key's bits made monotone, then 127 - lane), so one unsigned compare gives
@@ -86,12 +105,11 @@ constexpr int kWGRows = 64;               // code rows per warpgroup (wgmma's M)
 constexpr int kKC = 32;                   // contraction columns per chunk (128 B of fp32)
 constexpr int kThreads = 256;             // two warpgroups
 constexpr int kQHalf = kQB * 128;         // one swizzled (128 x 32) fp32 query tile
-constexpr int kQChunkBytes = 2 * kQHalf;  // its big and small halves
-constexpr int kResidentQChunks = 4;       // queries stay resident up to D = 128
-constexpr int kStagesResident = 4;        // per-warpgroup ring depth, queries resident
-constexpr int kStagesStreamed = 2;        // the same when queries stream
-static_assert((kStagesResident & (kStagesResident - 1)) == 0 && (kStagesStreamed & (kStagesStreamed - 1)) == 0,
-              "ring slots are taken as it & (stages - 1)");
+constexpr int kResidentQHalves = 8;       // resident up to D = 128 split, D = 256 one pass
+// Ring depth (code stages per warpgroup; streamed query slots): 4, and 6 in
+// one pass, whose query tiles take half the shared memory and whose copies,
+// not products, bound it on the H100 (csrc/probes/flat_scan_ablation.py).
+__host__ __device__ constexpr int ring_stages(int qhalves) { return qhalves == 1 ? 6 : 4; }
 constexpr int kGPitch = kLanes + 4;       // group-max row pitch (floats) for the sort
 constexpr int kGBytes = kQB * kGPitch * 4;
 constexpr float kNegInf = -FLT_MAX;       // float32 min, as NEG_INF in runtime.py
@@ -154,6 +172,11 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(ACCUMULATE ? 1 : 0));
 }
 
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
 __device__ __forceinline__ void fence_operands(float (&d)[64]) {
@@ -164,6 +187,12 @@ __device__ __forceinline__ void fence_operands(float (&d)[64]) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+// W = 4 or 8 bytes (cp.async.cg takes 16 only); src and dst W-aligned
+template <int W>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "n"(W), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -215,6 +244,37 @@ __global__ void split_queries(const float* __restrict__ q, float* __restrict__ q
   const int64_t o = sw128(r, lc >> 2) + (lc & 3) * 4;
   *reinterpret_cast<float*>(base + o) = big;
   *reinterpret_cast<float*>(base + static_cast<int64_t>(nq_pad) * 128 + o) = to_tf32(x - big);
+}
+
+// One warpgroup's 64 code rows of one chunk (RB bytes of each, from byte
+// off0 of the row) into the swizzled ring stage `dst`, W bytes a copy: copy e
+// = wt + 128 j takes bytes W * (e % E) .. of row e / E (E = RB / W copies a
+// row), so that the copies of one warp are adjacent in device memory. Bytes
+// past the row's end are zero filled; a copy that reads nothing keeps its
+// address at the row's start, inside the allocation. W = 1: byte loads.
+template <int RB, int W>
+__device__ __forceinline__ void copy_code_rows(char* dst, const char* rows, int row_bytes, int off0,
+                                               int wt) {
+  constexpr int U = RB / 16;
+  constexpr int E = RB / W;
+  constexpr int kCopies = kWGRows * E;
+#pragma unroll
+  for (int j = 0; j < (kCopies + 127) / 128; ++j) {
+    const int e = wt + 128 * j;
+    if (kCopies % 128 != 0 && e >= kCopies) break;
+    const int r = e / E, b = (e % E) * W;
+    const int off = off0 + b;
+    const int valid = min(max(row_bytes - off, 0), W);
+    const char* src = rows + static_cast<int64_t>(r) * row_bytes + (valid > 0 ? off : 0);
+    char* d = dst + r * RB + swizzle<U>(b / 16, r) * 16 + b % 16;
+    if constexpr (W == 16) {
+      cp_async16(d, src, valid);
+    } else if constexpr (W > 1) {
+      cp_async_ca<W>(d, src, valid);
+    } else {
+      *d = valid > 0 ? *src : 0;
+    }
+  }
 }
 
 // One code row's 4 contraction values of half `kb` of a chunk, for thread
@@ -309,40 +369,45 @@ __device__ __forceinline__ void group_sort128(uint64_t (&v)[EPT], int t) {
   }
 }
 
-// Shared memory (1024-byte aligned): the resident query tiles, the per-query
-// constants, then each warpgroup's ring of stages (its 64 code rows of a
-// chunk, and the chunk's query tiles when they stream).
+// Shared memory (1024-byte aligned): the query tiles (every chunk's when
+// resident, else a ring of chunks that the two warpgroups share), the
+// per-query constants, then each warpgroup's ring of code stages
+// (its 64 code rows of a chunk). A chunk's query tiles are its big half,
+// then its small half unless one pass runs.
 struct Layout {
-  int stages, stage_bytes, consts, rings, total;
+  int code_stage, consts, rings, total;
 };
 
-__host__ __device__ inline Layout make_layout(int ct, int nch, bool resident) {
+__host__ __device__ inline Layout make_layout(int ct, int nch, bool resident, int qhalves) {
   Layout s;
-  s.stages = resident ? kStagesResident : kStagesStreamed;
-  const int codes = kWGRows * chunk_row_bytes(ct);
-  s.stage_bytes = resident ? codes : kQChunkBytes + ((codes + 1023) / 1024) * 1024;
-  s.consts = resident ? nch * kQChunkBytes : 0;
+  s.code_stage = kWGRows * chunk_row_bytes(ct);
+  const int stages = ring_stages(qhalves);
+  s.consts = (resident ? nch : stages) * qhalves * kQHalf;
   s.rings = s.consts + 2 * kQB * 4;
   s.rings = ((s.rings + 1023) / 1024) * 1024;
-  const int main_bytes = s.rings + 2 * s.stages * s.stage_bytes;
+  const int main_bytes = s.rings + 2 * stages * s.code_stage;
   s.total = (main_bytes > 2 * kGBytes ? main_bytes : 2 * kGBytes) + 1024;
   return s;
 }
 
-template <int CT, int METRIC>
+// PASSES: 3 (fp32 codes, split TF32), 2 (fp16 / int8 / int4 codes, exact in
+// TF32), 1 (fp32 codes and queries exact in TF32, integer sums)
+template <int CT, int METRIC, int PASSES>
 __global__ void __launch_bounds__(kThreads, 1)
 flat_scan_kernel(const float* __restrict__ qsplit, const float* __restrict__ qside,
                  const float* __restrict__ qsum, const char* __restrict__ codes,
                  const float* __restrict__ knorm, const int8_t* __restrict__ mask,
                  float* __restrict__ out_s, int32_t* __restrict__ out_i, int nq,
                  int nq_pad, int nch, int row_bytes, int tile_n, int topk, int n_qb,
-                 bool resident, bool vec, float scale, float bias) {
+                 bool resident, int copy, float scale, float bias) {
   constexpr int RB = chunk_row_bytes(CT);
-  constexpr int U = RB / 16;
-  constexpr int kPasses = CT == kF32 ? 3 : 2;
+  static_assert(PASSES == (CT == kF32 ? 3 : 2) || (PASSES == 1 && CT == kF32), "pass count");
+  constexpr int kQHalves = PASSES == 1 ? 1 : 2;  // query halves a chunk reads
+  constexpr int kQChunk = kQHalves * kQHalf;
+  constexpr int kStages = ring_stages(kQHalves);
   extern __shared__ char smem_raw[];
   char* smem = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const Layout L = make_layout(CT, nch, resident);
+  const Layout L = make_layout(CT, nch, resident, kQHalves);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, ln = tid & 31;
@@ -356,43 +421,39 @@ flat_scan_kernel(const float* __restrict__ qsplit, const float* __restrict__ qsi
   const int n_iter = (tile_n / kLanes) * nch;
   float* c_side = reinterpret_cast<float*>(smem + L.consts);
   float* c_sum = c_side + kQB;
-  char* ring = smem + L.rings + wg * L.stages * L.stage_bytes;
-  const int code_off = resident ? 0 : kQChunkBytes;  // streamed: the query tiles come first
+  char* ring = smem + L.rings + wg * kStages * L.code_stage;
+  // the query tiles of chunk it (column chunk c): resident, or a slot of the shared ring
+  auto query_tiles = [&](int it, int c) {
+    return smem + (resident ? c : it % kStages) * kQChunk;
+  };
+  // Stages issued ahead of the one consumed. A code stage is free once its
+  // fragments are in registers; a streamed query slot only once both
+  // warpgroups' products on it are done, which wgmma.wait_group 1 and the
+  // block barrier give two chunks later.
+  const int lead = resident ? kStages - 1 : kStages - 2;
 
-  // the swizzled query tiles of chunk c (both halves, all 128 rows) to dst
+  // the swizzled query tiles of chunk c (the halves it reads, all 128 rows) to dst
   auto load_queries = [&](int c, char* dst, int t0, int nt) {
     const char* src = reinterpret_cast<const char*>(qsplit) + static_cast<int64_t>(c) * 2 * nq_pad * 128;
-    for (int e = t0; e < kQChunkBytes / 16; e += nt) {
+    for (int e = t0; e < kQChunk / 16; e += nt) {
       const int h = e / (kQB * 8), rest = e % (kQB * 8);
       cp_async16(dst + e * 16, src + (static_cast<int64_t>(h) * nq_pad + q0) * 128 + rest * 16, 16);
     }
   };
-  // this warpgroup's 64 rows of code chunk `it` (and its query tiles when
-  // they stream) into stage it % stages
+  // this warpgroup's 64 rows of code chunk `it` into its stage it % kStages,
+  // and when the queries stream, this thread's share of the chunk's query
+  // tiles into the shared slot
   auto issue = [&](int it) {
     const int sub = it / nch, c = it - sub * nch;
-    char* st = ring + (it & (L.stages - 1)) * L.stage_bytes;
-    char* dst = st + code_off;
-    // thread wt copies unit wt % U of rows wt / U + k * (128 / U)
-    constexpr int kRowStep = 128 / U;
-    const int u = wt % U, r1 = wt / U;
-    const int off = c * RB + u * 16;
-    const int valid = min(max(row_bytes - off, 0), 16);  // 0: zero fill
-    const char* src = codes + (row0 + static_cast<int64_t>(sub) * kLanes + wg * kWGRows + r1) * row_bytes +
-                      (valid > 0 ? off : 0);
-#pragma unroll
-    for (int k = 0; k < (kWGRows + kRowStep - 1) / kRowStep; ++k) {
-      const int r = r1 + k * kRowStep;
-      if (r >= kWGRows) break;
-      const char* sk = src + static_cast<int64_t>(k) * kRowStep * row_bytes;
-      char* d = dst + r * RB + swizzle<U>(u, r) * 16;
-      if (vec) {
-        cp_async16(d, sk, valid);
-      } else {
-        for (int b = 0; b < 16; ++b) d[b] = b < valid ? sk[b] : 0;
-      }
+    char* dst = ring + (it % kStages) * L.code_stage;
+    const char* rows = codes + (row0 + static_cast<int64_t>(sub) * kLanes + wg * kWGRows) * row_bytes;
+    switch (copy) {  // uniform over the block
+      case 16: copy_code_rows<RB, 16>(dst, rows, row_bytes, c * RB, wt); break;
+      case 8: copy_code_rows<RB, 8>(dst, rows, row_bytes, c * RB, wt); break;
+      case 4: copy_code_rows<RB, 4>(dst, rows, row_bytes, c * RB, wt); break;
+      default: copy_code_rows<RB, 1>(dst, rows, row_bytes, c * RB, wt); break;
     }
-    if (!resident) load_queries(c, st, wt, 128);
+    if (!resident) load_queries(c, query_tiles(it, c), tid, kThreads);
   };
 
   if (tid < kQB) {
@@ -401,7 +462,7 @@ flat_scan_kernel(const float* __restrict__ qsplit, const float* __restrict__ qsi
     c_sum[tid] = qr < nq ? qsum[qr] : 0.f;
   }
   if (resident) {
-    for (int c = 0; c < nch; ++c) load_queries(c, smem + c * kQChunkBytes, tid, kThreads);
+    for (int c = 0; c < nch; ++c) load_queries(c, smem + c * kQChunk, tid, kThreads);
     cp_async_commit();
     cp_async_wait<0>();
     fence_proxy_async();
@@ -426,27 +487,29 @@ flat_scan_kernel(const float* __restrict__ qsplit, const float* __restrict__ qsi
   next_nm(0);
   next_nm(1);
 
-  for (int i = 0; i < L.stages - 1; ++i) {
+  for (int i = 0; i < lead; ++i) {
     if (i < n_iter) issue(i);
     cp_async_commit();
   }
 
-  // A fragments of one chunk: [half kb][row h][4 columns], split when fp32
+  // A fragments of one chunk: [half kb][row h][4 columns], split in three passes
   struct Frag {
     uint32_t big[2][2][4], small[2][2][4];
   };
-  // chunk `it` of the ring into registers; refills the ring slot freed by chunk it - 1
+  // chunk `it` of the ring into registers; issues chunk it + lead into the
+  // slots that chunk it + lead - kStages used
   auto prepare = [&](int it, Frag& a) {
     if (resident) {
-      cp_async_wait<kStagesResident - 2>();
+      cp_async_wait<kStages - 2>();
+      warpgroup_sync(wg);  // stage it landed; this warpgroup read stage it - 1
     } else {
-      cp_async_wait<kStagesStreamed - 2>();
+      cp_async_wait<kStages - 3>();
       fence_proxy_async();
+      __syncthreads();  // stage it landed, query tiles whole; chunk it - 2's products done
     }
-    warpgroup_sync(wg);  // stage it landed; stage it - 1 is free
-    if (it + L.stages - 1 < n_iter) issue(it + L.stages - 1);
+    if (it + lead < n_iter) issue(it + lead);
     cp_async_commit();
-    const char* st = ring + (it & (L.stages - 1)) * L.stage_bytes + code_off;
+    const char* st = ring + (it % kStages) * L.code_stage;
 #pragma unroll
     for (int kb = 0; kb < 2; ++kb)
 #pragma unroll
@@ -458,7 +521,7 @@ flat_scan_kernel(const float* __restrict__ qsplit, const float* __restrict__ qsi
           if constexpr (CT == kF32) {
             const float big = to_tf32(v[e]);
             a.big[kb][h][e] = __float_as_uint(big);
-            a.small[kb][h][e] = __float_as_uint(to_tf32(v[e] - big));
+            if constexpr (PASSES == 3) a.small[kb][h][e] = __float_as_uint(to_tf32(v[e] - big));
           } else {
             a.big[kb][h][e] = __float_as_uint(v[e]);  // exact in tf32
           }
@@ -471,8 +534,8 @@ flat_scan_kernel(const float* __restrict__ qsplit, const float* __restrict__ qsi
   for (int i = 0; i < 64; ++i) gmax[i] = kNegInf;
   // chunk `it` (column chunk c of its sub-tile) into the accumulator, asynchronously
   auto multiply = [&](int it, int c, const Frag& a) {
-    const char* qt = resident ? smem + c * kQChunkBytes : ring + (it & (L.stages - 1)) * L.stage_bytes;
-    const uint64_t qb_d = tile_desc(qt), qs_d = tile_desc(qt + kQHalf);
+    const char* qt = query_tiles(it, c);
+    const uint64_t qb_d = tile_desc(qt);
     fence_operands(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -482,41 +545,58 @@ flat_scan_kernel(const float* __restrict__ qsplit, const float* __restrict__ qsi
       // fragment k index tig <-> column 4*tig + 2s, tig + 4 <-> 4*tig + 2s + 1
       const uint32_t ab[4] = {a.big[kb][0][2 * s], a.big[kb][1][2 * s],
                               a.big[kb][0][2 * s + 1], a.big[kb][1][2 * s + 1]};
-      if (kk == 0 && c == 0) {
-        wgmma_tf32<false>(acc, ab, qs_d + k2);  // a sub-tile's first product overwrites
+      // a sub-tile's first product overwrites: code-big x query-small, or
+      // code-big x query-big where that is the only product
+      const bool first = kk == 0 && c == 0;
+      if constexpr (PASSES == 1) {
+        if (first) {
+          wgmma_tf32<false>(acc, ab, qb_d + k2);
+        } else {
+          wgmma_tf32(acc, ab, qb_d + k2);
+        }
       } else {
-        wgmma_tf32(acc, ab, qs_d + k2);
+        const uint64_t qs_d = tile_desc(qt + kQHalf);
+        if (first) {
+          wgmma_tf32<false>(acc, ab, qs_d + k2);
+        } else {
+          wgmma_tf32(acc, ab, qs_d + k2);
+        }
+        if constexpr (PASSES == 3) {
+          const uint32_t as[4] = {a.small[kb][0][2 * s], a.small[kb][1][2 * s],
+                                  a.small[kb][0][2 * s + 1], a.small[kb][1][2 * s + 1]};
+          wgmma_tf32(acc, as, qb_d + k2);
+        }
+        wgmma_tf32(acc, ab, qb_d + k2);
       }
-      if constexpr (kPasses == 3) {
-        const uint32_t as[4] = {a.small[kb][0][2 * s], a.small[kb][1][2 * s],
-                                a.small[kb][0][2 * s + 1], a.small[kb][1][2 * s + 1]};
-        wgmma_tf32(acc, as, qb_d + k2);
-      }
-      wgmma_tf32(acc, ab, qb_d + k2);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   };
 
   // Chunk it multiplies while the fragments of chunk it + 1 are prepared in
-  // the other register set; n_iter is even (a tile has an even number of
-  // sub-tiles), so the two sets alternate at compile time.
-  Frag frag[2];
+  // another register set: two sets, four in one pass (whose products are a
+  // third as long), so that three chunks' products stay in flight when the
+  // queries are resident (one otherwise, for the shared query slots). Four
+  // sets made the two-pass instances spill, and ran fp16 codes slower on the
+  // H100. n_iter is a multiple of 8 (a tile has at least 8 sub-tiles), so
+  // the sets rotate at compile time.
+  constexpr int kSets = PASSES == 1 ? 4 : 2;
+  Frag frag[kSets];
   prepare(0, frag[0]);
   int sub = 0, c = 0;
-  for (int it = 0; it < n_iter; it += 2) {
+  for (int it = 0; it < n_iter; it += kSets) {
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < kSets; ++b) {
       multiply(it + b, c, frag[b]);
-      // the products of chunk it + b - 1 are done (all, when the queries
-      // stream: their tiles share the ring slot prepare refills)
+      // the products of chunk it + b - (kSets - 1) are done, so its register
+      // set is free (of chunk it + b - 1 when the queries stream)
       if (resident) {
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        wgmma_wait<kSets - 1>();
       } else {
-        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        wgmma_wait<1>();
       }
-      if (it + b + 1 < n_iter) prepare(it + b + 1, frag[b ^ 1]);
+      if (it + b + 1 < n_iter) prepare(it + b + 1, frag[(b + 1) % kSets]);
       if (c == nch - 1) {
-        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        wgmma_wait<0>();
         fence_operands(acc);
         // rank-key epilogue + mask, folded into the running group-max
 #pragma unroll
@@ -623,38 +703,40 @@ struct Plan {
   int smem;
 };
 
-Plan make_plan(int code_type, int nq, int dk, int ld) {
+int code_row_bytes(int code_type, int ld) {
+  return ld * (code_type == kF32 ? 4 : code_type == kF16 ? 2 : 1);
+}
+
+Plan make_plan(int code_type, int nq, int dk, int ld, int qhalves) {
   Plan p;
   p.nch = code_type == kI4 ? (ld + 15) / 16 : (dk + kKC - 1) / kKC;
   p.n_qb = (nq + kQB - 1) / kQB;
   p.nq_pad = p.n_qb * kQB;
-  const int elem = code_type == kF32 ? 4 : code_type == kF16 ? 2 : 1;
-  p.row_bytes = ld * elem;
-  p.resident = p.nch <= kResidentQChunks;
-  p.smem = make_layout(code_type, p.nch, p.resident).total;
+  p.row_bytes = code_row_bytes(code_type, ld);
+  p.resident = p.nch * qhalves <= kResidentQHalves;
+  p.smem = make_layout(code_type, p.nch, p.resident, qhalves).total;
   return p;
 }
 
-template <int CT, int METRIC>
+template <int CT, int METRIC, int PASSES>
 cudaError_t launch(const float* q, const float* qside, const float* qsum,
                    const void* codes, const float* knorm, const int8_t* mask,
                    float* out_s, int32_t* out_i, int nq, int dk, int ld,
                    long long n_tiles, int tile_n, int topk, float scale,
-                   float bias, float* qsplit, cudaStream_t stream) {
-  const Plan p = make_plan(CT, nq, dk, ld);
+                   float bias, float* qsplit, int copy, cudaStream_t stream) {
+  const Plan p = make_plan(CT, nq, dk, ld, PASSES == 1 ? 1 : 2);
   if (n_tiles * p.n_qb > INT_MAX || n_tiles * kLanes > INT_MAX) return cudaErrorInvalidValue;
   const long long total = static_cast<long long>(p.nq_pad) * p.nch * kKC;
   split_queries<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
       q, qsplit, nq, p.nq_pad, dk, ld, p.nch, CT == kI4);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto kernel = flat_scan_kernel<CT, METRIC>;
+  auto kernel = flat_scan_kernel<CT, METRIC, PASSES>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  const bool vec = p.row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
   kernel<<<static_cast<unsigned>(n_tiles * p.n_qb), kThreads, p.smem, stream>>>(
       qsplit, qside, qsum, static_cast<const char*>(codes), knorm, mask, out_s, out_i,
-      nq, p.nq_pad, p.nch, p.row_bytes, tile_n, topk, p.n_qb, p.resident, vec, scale, bias);
+      nq, p.nq_pad, p.nch, p.row_bytes, tile_n, topk, p.n_qb, p.resident, copy, scale, bias);
   return cudaGetLastError();
 }
 
@@ -662,32 +744,45 @@ cudaError_t launch(const float* q, const float* qside, const float* qsum,
 
 // Floats of scratch that zvec_flat_scan needs for the split queries.
 extern "C" long long zvec_flat_scan_scratch_floats(int code_type, int nq, int dk, int ld) {
-  const Plan p = make_plan(code_type, nq, dk, ld);
+  const Plan p = make_plan(code_type, nq, dk, ld, 2);
   return 2LL * p.nq_pad * p.nch * kKC;
 }
 
 // Launches stage one on `stream`; returns the cudaError_t of the launches.
 // code_type: 0 f32, 1 f16, 2 int8, 3 packed int4 (dk = 2*ld).
 // metric: 0 L2, 1 IP, 2 COSINE. qsplit: zvec_flat_scan_scratch_floats floats.
+// copy: bytes a cp.async of the code rows moves, 16 / 8 / 4, or 1 for byte
+// loads; the row stride and the codes pointer must be multiples of it.
+// exact: 1 runs one TF32 product (fp32 codes, L2 only), for queries and codes
+// exact in TF32 whose dot products are integers (+-1 codes); 0 the split.
 extern "C" int zvec_flat_scan(const float* q, const float* qside,
                               const float* qsum, const void* codes,
                               int code_type, int metric, const float* knorm,
                               const int8_t* mask, float* out_s, int32_t* out_i,
                               int nq, int dk, int ld, long long n, int tile_n,
                               int topk, float scale, float bias, float* qsplit,
-                              void* stream) {
+                              int copy, int exact, void* stream) {
   if (nq <= 0 || dk <= 0 || tile_n <= 0 || tile_n % kLanes != 0 || n <= 0 ||
       n % tile_n != 0 || topk < 1 || topk > kLanes ||
-      dk != (code_type == kI4 ? 2 * ld : ld)) {
+      dk != (code_type == kI4 ? 2 * ld : ld) || code_type < kF32 || code_type > kI4 ||
+      (copy != 1 && copy != 4 && copy != 8 && copy != 16) ||
+      code_row_bytes(code_type, ld) % copy != 0 || reinterpret_cast<uintptr_t>(codes) % copy != 0 ||
+      (exact != 0 && (exact != 1 || code_type != kF32 || metric != kL2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_tiles = n / tile_n;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ZVEC_FLAT_SCAN_CASE(CT, M)                                              \
-  case CT * 3 + M:                                                              \
-    return static_cast<int>(launch<CT, M>(q, qside, qsum, codes, knorm, mask,   \
-                                          out_s, out_i, nq, dk, ld, n_tiles,    \
-                                          tile_n, topk, scale, bias, qsplit, s));
+  if (exact) {
+    return static_cast<int>(launch<kF32, kL2, 1>(q, qside, qsum, codes, knorm, mask, out_s, out_i, nq,
+                                                 dk, ld, n_tiles, tile_n, topk, scale, bias, qsplit,
+                                                 copy, s));
+  }
+#define ZVEC_FLAT_SCAN_CASE(CT, M)                                                         \
+  case CT * 3 + M:                                                                         \
+    return static_cast<int>(launch<CT, M, CT == kF32 ? 3 : 2>(q, qside, qsum, codes, knorm, \
+                                                              mask, out_s, out_i, nq, dk,   \
+                                                              ld, n_tiles, tile_n, topk,    \
+                                                              scale, bias, qsplit, copy, s));
   switch (code_type * 3 + metric) {
     ZVEC_FLAT_SCAN_CASE(kF32, kL2)
     ZVEC_FLAT_SCAN_CASE(kF32, kIP)

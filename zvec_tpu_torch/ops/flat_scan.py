@@ -18,7 +18,11 @@ scan is 0.26 TFLOP against 0.5 GB of codes, so it is bound by arithmetic, not
 by device memory. The kernel runs the products on the tensor cores in split
 TF32 (three TF32 products per fp32 pair, two for fp16 / int8 / int4 codes),
 which keeps the keys at fp32 accuracy; see the note at the top of
-`csrc/flat_scan.cu` for the error argument and the design.
+`csrc/flat_scan.cu` for the error argument and the design. With
+`exact_tf32=True` (fp32 +-1 codes under L2, the scan of a HAMMING or BINARY
+field) one TF32 product gives the same keys exactly, and the kernel runs
+that one. The code rows reach the kernel's ring by asynchronous copies of
+the widest size their stride and address allow (`copy_bytes`).
 
 The kernel is built at first use from `csrc/*.cu` with nvcc into
 `_build/` (a plain C interface loaded with ctypes), keyed by a hash of the
@@ -46,6 +50,7 @@ __all__ = [
     "flat_scan_topk",
     "flat_scan_topk_plain",
     "flat_scan_stage1",
+    "copy_bytes",
     "pick_tile",
     "build_kernels",
 ]
@@ -72,6 +77,16 @@ def pick_tile(n: int, topk: int) -> int:
         if n % t == 0 and (t // _LANES) * topk <= _MAX_CAND:
             return t
     raise ValueError(f"N={n} must be a multiple of 1024 (topk={topk})")
+
+
+def copy_bytes(row_bytes: int, data_ptr: int) -> int:
+    """Bytes a cp.async of the kernel's code ring moves: 16, 8 or 4, the
+    widest that divides both the row stride and the codes' address; 1 (byte
+    loads) where the stride is not a multiple of 4 bytes."""
+    for width in (16, 8, 4):
+        if row_bytes % width == 0 and data_ptr % width == 0:
+            return width
+    return 1
 
 
 def build_kernels() -> tuple[Path, float]:
@@ -112,7 +127,7 @@ def _library():
             lib.zvec_flat_scan.argtypes = [
                 p, p, p, p, i, i, p, p, p, p,  # q qside qsum codes ctype metric knorm mask out_s out_i
                 i, i, i, ctypes.c_longlong, i, i,  # nq dk ld n tile_n topk
-                ctypes.c_float, ctypes.c_float, p, p,  # scale bias qsplit stream
+                ctypes.c_float, ctypes.c_float, p, i, i, p,  # scale bias qsplit copy exact stream
             ]
             lib.zvec_flat_scan.restype = ctypes.c_int
             lib.zvec_flat_scan_scratch_floats.argtypes = [i, i, i, i]  # ctype nq dk ld
@@ -122,7 +137,7 @@ def _library():
 
 
 def _stage1_kernel(q_kern, qside, qsum, codes, knorm, mask, *, metric, topk,
-                   tile_n, scale, bias, int4):
+                   tile_n, scale, bias, int4, exact_tf32=False):
     """Launch `csrc/flat_scan.cu` on CUDA tensors; raises on anything the
     kernel does not take or on a failed launch."""
     dev = codes.device
@@ -146,6 +161,7 @@ def _stage1_kernel(q_kern, qside, qsum, codes, knorm, mask, *, metric, topk,
     out_i = torch.empty((n_tiles, topk, nq), dtype=torch.int32, device=dev)
     lib = _library()
     ctype = 3 if int4 else _CODE_TYPES[codes.dtype]
+    copy = copy_bytes(ld * codes.element_size(), codes.data_ptr())
     # the kernel's split-TF32, zero-padded query halves
     qsplit = torch.empty(lib.zvec_flat_scan_scratch_floats(ctype, nq, dk, ld),
                          dtype=torch.float32, device=dev)
@@ -155,10 +171,12 @@ def _stage1_kernel(q_kern, qside, qsum, codes, knorm, mask, *, metric, topk,
             q_kern.data_ptr(), qside.data_ptr(), qsum.data_ptr(), codes.data_ptr(),
             ctype, _METRICS[metric],
             knorm.data_ptr(), mask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            nq, dk, ld, n, tile_n, topk, scale, bias, qsplit.data_ptr(), stream,
+            nq, dk, ld, n, tile_n, topk, scale, bias, qsplit.data_ptr(), copy,
+            int(exact_tf32), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flat scan kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"flat scan kernel launch failed: cudaError {rc} "
+                           f"(copy {copy} bytes, exact_tf32 {exact_tf32})")
     flat_scan_topk.launches += 1
     return out_s, out_i
 
@@ -172,9 +190,10 @@ def _codes_f32(codes: torch.Tensor, int4: bool) -> torch.Tensor:
 
 
 def _stage1_plain(q_kern, qside, qsum, codes, knorm, mask, *, metric, topk,
-                  tile_n, scale, bias, int4):
+                  tile_n, scale, bias, int4, exact_tf32=False):
     """Stage one in plain PyTorch: the same (n_tiles, topk, Q) keys and group
-    ids as the kernel, from dense (Q, rows) keys in chunks of whole tiles."""
+    ids as the kernel, from dense (Q, rows) keys in chunks of whole tiles.
+    fp32 products whatever `exact_tf32` says: the yardstick of both passes."""
     n = codes.shape[0]
     nq = q_kern.shape[0]
     n_tiles, group = n // tile_n, tile_n // _LANES
@@ -203,12 +222,19 @@ def _stage1_plain(q_kern, qside, qsum, codes, knorm, mask, *, metric, topk,
     return out_s, out_i
 
 
-def _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim):
+def _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim, exact_tf32=False):
     """Kernel-side inputs shared by both stage-one versions."""
     metric = MetricType(metric)
     if metric not in _METRICS:
         raise ValueError(f"flat scan: unsupported metric {metric}")
     q = q.float().contiguous()
+    if exact_tf32:
+        # one TF32 product is exact only for +-1 codes against +-1 queries
+        # (zero rows pad a batch); the codes are the caller's to vouch for
+        if codes.dtype != torch.float32 or int4_dim is not None or metric != MetricType.L2:
+            raise ValueError("exact_tf32 needs fp32 codes and the L2 metric")
+        if not bool(((q == 1.0) | (q == -1.0) | (q == 0.0)).all()):
+            raise ValueError("exact_tf32 needs every query entry in {-1, 0, +1}")
     nq, d = q.shape
     n = codes.shape[0]
     int4 = int4_dim is not None
@@ -246,15 +272,15 @@ def _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim):
     kernel_args = (q_kern, qside, qsum, codes.contiguous(), knorm,
                    mask.to(torch.int8).contiguous())
     kernel_kw = dict(metric=metric, topk=topk, tile_n=tile_n, scale=scale,
-                     bias=bias, int4=int4)
+                     bias=bias, int4=int4, exact_tf32=exact_tf32)
     return q, norms, kernel_args, kernel_kw
 
 
 def flat_scan_stage1(q, codes, norms, mask, *, metric, topk, dequant=None,
-                     int4_dim=None, plain=False):
+                     int4_dim=None, plain=False, exact_tf32=False):
     """Stage one alone: (tile_s, tile_i), each (n_tiles, topk, Q). The kernel
     for CUDA tensors (unless `plain`), the plain version for CPU tensors."""
-    _, _, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim)
+    _, _, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim, exact_tf32)
     return _stage1(args, kw, plain)
 
 
@@ -264,8 +290,8 @@ def _stage1(args, kw, plain):
     return _stage1_kernel(*args, **kw)
 
 
-def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain):
-    q, norms, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim)
+def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain, exact_tf32=False):
+    q, norms, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim, exact_tf32)
     tile_s, tile_i = _stage1(args, kw, plain)
     q_kern, qside, _, codes, _, mask8 = args
     metric, tile_n = kw["metric"], kw["tile_n"]
@@ -314,23 +340,29 @@ def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain):
     return out_s, out_i
 
 
-def flat_scan_topk(q, codes, norms, mask, *, metric, topk, dequant=None, int4_dim=None):
+def flat_scan_topk(q, codes, norms, mask, *, metric, topk, dequant=None, int4_dim=None,
+                   exact_tf32=False):
     """Exact fused scan. Returns (sims (Q, topk) desc f32, int64 row ids, -1 pad).
 
     q (Q, D) f32; codes (N, D) f32 / f16 / int8, or nibble-packed int4
     (N, ceil(D/2)) int8 with `int4_dim=D`; N a multiple of 1024. norms (N,)
     f32: ||x||^2 for L2, ||x|| for COSINE, unused for IP (dequantized norms
     with `dequant=(scale, bias)`). mask (N,) nonzero = candidate.
+    `exact_tf32=True` declares the codes +-1 (or zero rows): the kernel then
+    runs one TF32 product, exact there; it raises unless the codes are fp32,
+    the metric L2 and every query entry in {-1, 0, +1}.
 
     CUDA tensors run stage one in the CUDA kernel, or raise; CPU tensors run
     the plain version."""
-    return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=False)
+    return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=False,
+                 exact_tf32=exact_tf32)
 
 
 flat_scan_topk.launches = 0  # stage-one kernel launches (not plain runs)
 
 
 def flat_scan_topk_plain(q, codes, norms, mask, *, metric, topk, dequant=None,
-                         int4_dim=None):
+                         int4_dim=None, exact_tf32=False):
     """`flat_scan_topk` with stage one in plain PyTorch on any device."""
-    return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=True)
+    return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=True,
+                 exact_tf32=exact_tf32)

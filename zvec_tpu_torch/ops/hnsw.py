@@ -613,24 +613,31 @@ def knn_build_step(
     use_kernel: bool = True,
     alpha: float = 1.0,
     backfill_alpha: float = 0.0,
+    exact_tf32: bool = False,
+    scan_codes=None,  # (N_pad, D') codes zero-padded to D' >= D columns for the scan; None = codes
 ):
     """One build batch: exact top-(knn_k+1) scan for the batch's nodes
     (self-matches included; the prune drops them), heuristic prune to
     max_out forward neighbours, scatter into `adj` (in place: the JAX
     version donates the buffer). knn_k <= 127 rides the fused flat scan,
-    whose stage one is the CUDA kernel for CUDA tensors; larger pools use
-    the exact blockwise scan."""
-    q = codes[rows].float()
+    whose stage one is the CUDA kernel for CUDA tensors (one TF32 product
+    with `exact_tf32`, for +-1 codes); larger pools use the exact blockwise
+    scan. Zero columns change no key, so `scan_codes` (16-byte rows for the
+    kernel's copies) gives the scan of `codes`; the prune reads `codes`."""
+    if scan_codes is None:
+        scan_codes = codes
+    q = scan_codes[rows].float()
     if use_kernel:
         from .flat_scan import flat_scan_topk
 
         scan_norms = torch.sqrt(norms2) if metric == MetricType.COSINE else norms2
-        sims, ids = flat_scan_topk(q, codes, scan_norms, mask, metric=metric, topk=knn_k + 1)
+        sims, ids = flat_scan_topk(q, scan_codes, scan_norms, mask, metric=metric, topk=knn_k + 1,
+                                   exact_tf32=exact_tf32)
     else:
         from .topk import blockwise_topk_search
 
         sims, ids = blockwise_topk_search(
-            q, codes, metric, knn_k + 1,
+            q, scan_codes, metric, knn_k + 1,
             mask=mask != 0, x_sq_norms=norms2, block_size=131072,
         )
     out_ids = prune_scored(

@@ -206,6 +206,7 @@ def sharded_flat_search(
     x_sq_norms=None,  # (N,) f32 (or per shard)
     dequant: Optional[Tuple[float, float]] = None,
     int4_packed: bool = False,
+    exact_tf32: bool = False,  # +-1 codes: the kernel's one-pass product
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact sharded top-k: every shard scans its rows with the FLAT engine's
     own scan (the fused CUDA kernel where the single-device rule takes it:
@@ -230,7 +231,7 @@ def sharded_flat_search(
             m8 = m.to(torch.int8) if m is not None else torch.ones(r, dtype=torch.int8, device=dev)
             s, i = flat_scan_topk(
                 q, c, kn, m8, metric=metric, topk=k, dequant=dequant,
-                int4_dim=q.shape[1] if int4_packed else None,
+                int4_dim=q.shape[1] if int4_packed else None, exact_tf32=exact_tf32,
             )
         else:
             s, i = blockwise_topk_search(
