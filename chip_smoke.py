@@ -259,9 +259,20 @@ and, for fp32 codes, a library yardstick: torch.matmul of the same (Q, D) x
 (D, N) product in full fp32 (with TF32 on for the +-1 codes, where it is
 exact), the product only (the port never calls it).
 
-The line before the last is a JSON object with the kernel's launches, error,
-times, bound and yardstick; the last line is {"ok": true, "device": {...}}. Needs one CUDA
-card; exits non-zero without one.
+The same phases (3, 3b, 3c, 3d, 8c and compact) hold the merge kernel
+(csrc/flat_merge.cu: the top-k of stage one's tile winners) to its plain
+version on the same stage-one output, keys and int64 ids bit for bit, and
+print its time beside the plain version's, its bound (the bytes a merge of
+sorted tiles must move: every tile's maximum, each tile's keys down to the
+first one under the k-th largest maximum, the winners' ids and the outputs,
+counted on the card, over 3.35 TB/s; beside it the bound of a merge that
+reads every key) and torch.topk of the (Q, n_tiles * k) keys, its yardstick
+(the port never calls it). Every path counts both kernels' launches, and a
+path where they differ fails the run.
+
+The line before the last is a JSON object with each kernel's launches by
+path, error, times, bound and yardstick; the last line is {"ok": true,
+"device": {...}}. Needs one CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -474,8 +485,39 @@ GROUP_DEADLINE_S = 1100  # since the start: workers still running then are stopp
 PARENT_ENV = "CHIP_SMOKE_PARENT"  # a worker's parent pid: the worker dies with it
 
 
+MERGE_LAUNCHES = {}  # the merge kernel's launches by path, read where K1's are
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _zero_launches() -> None:
+    """K1's and the merge kernel's launch counts set to 0 before a path runs."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    fs.flat_scan_topk.launches = fs.flat_scan_merge.launches = 0
+
+
+def _path_launches(path: str) -> int:
+    """K1's launches on `path` so far; the merge kernel's are recorded beside
+    them. Each scan of flat_scan_topk launches both once, so counts that
+    differ fail the run."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    k1, merge = fs.flat_scan_topk.launches, fs.flat_scan_merge.launches
+    MERGE_LAUNCHES[path] = merge
+    if merge != k1:
+        raise AssertionError(f"{path}: the merge kernel launched {merge} times, K1 {k1}")
+    return k1
+
+
+def _restore_launches(n: int) -> None:
+    """Both counts back to a path's reading (where they were equal), after
+    launches that held a kernel to its plain version."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    fs.flat_scan_topk.launches = fs.flat_scan_merge.launches = n
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -537,6 +579,56 @@ def _bound_text(b: dict, k_ms: float, lib_ms, lib_kind: str = "fp32") -> str:
     return (f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} ({b['flop']:.4g} FLOP at 495 TFLOP/s, "
             f"{b['bytes']:.4g} B at 3.35 TB/s), roofline {b['bound_ms'] / k_ms:.1%}; "
             f"library {lib} (torch.matmul {lib_kind}, product only)")
+
+
+def _merge_bound(ts: torch.Tensor, k: int) -> dict:
+    """The least time the card could take for the merge of these tiles: its
+    bytes over the memory rate (a compare or two a key read: no operation
+    bound to speak of). Each tile's keys come sorted, so a merge must read
+    its first ceil(k / n_tiles) keys (the maxima, when n_tiles >= k), whose
+    k-th largest L bounds the answer's k-th key from below, and each tile's
+    keys down to the first one under L (all k where none is); then the
+    winners' ids, and write (Q, k) f32 keys and int64 ids. Counted from these
+    keys. Also the bound of a merge that reads every key."""
+    n_tiles, _, nq = ts.shape
+    rmax = min(k, -(-k // n_tiles))
+    lower = torch.topk(ts[:, :rmax].reshape(-1, nq), k, dim=0).values[-1]  # (Q,) L
+    at_or_above = (ts >= lower).sum(dim=1)  # (n_tiles, Q): each tile's prefix >= L
+    read = int(torch.clamp(torch.clamp(at_or_above + 1, min=rmax), max=k).sum())
+    rest = nq * k * (4 + 4 + 8)  # winners' ids read, keys and int64 ids written
+    nbytes, full = read * 4 + rest, ts.numel() * 4 + rest
+    return dict(bound_ms=nbytes / PEAK_HBM_BYTES * 1e3, bound_by="bytes", bytes=nbytes,
+                keys_read=read, keys=ts.numel(), full_read_bound_ms=full / PEAK_HBM_BYTES * 1e3)
+
+
+def _merge_case(ts: torch.Tensor, ti: torch.Tensor, k: int, label: str) -> dict:
+    """The merge kernel against its plain version on one stage-one output:
+    keys and int64 ids bit for bit (raises otherwise), then the times, the
+    bound and torch.topk of the (Q, n_tiles * k) keys."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    ks, ki = fs.flat_scan_merge(ts, ti, topk=k)
+    ps, pi = fs._merge_plain(ts, ti, k)
+    torch.cuda.synchronize()
+    same = torch.equal(ks.view(torch.int32), ps.view(torch.int32)) and torch.equal(ki, pi)
+    err = float((ks - ps).abs().max())
+    del ks, ki, ps, pi
+    k_ms = time_ms(lambda: fs.flat_scan_merge(ts, ti, topk=k))
+    p_ms = time_ms(lambda: fs._merge_plain(ts, ti, k))
+    keys = ts.permute(2, 0, 1).reshape(ts.shape[2], -1).contiguous()
+    lib_ms = time_ms(lambda: torch.topk(keys, k, dim=1))
+    del keys
+    b = _merge_bound(ts, k)
+    log(f"merge {label} n_tiles={ts.shape[0]} k={k} Q={ts.shape[2]}: keys and ids bitwise {same}; "
+        f"merge {k_ms:.3f} ms vs plain {p_ms:.3f} ms; bound {b['bound_ms']:.4f} ms by bytes "
+        f"({b['keys_read']} of {b['keys']} keys read, {b['bytes']:.4g} B at 3.35 TB/s; reading every key "
+        f"{b['full_read_bound_ms']:.3f} ms), roofline {b['bound_ms'] / k_ms:.1%}; library {lib_ms:.3f} ms "
+        f"(torch.topk of the (Q, n_tiles * k) keys)")
+    if not same:
+        raise AssertionError(f"merge kernel differs from its plain version at the {label}")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=lib_ms, roofline=b["bound_ms"] / k_ms, keys_read=b["keys_read"],
+                full_read_bound_ms=b["full_read_bound_ms"])
 
 
 def _pad4(d: int) -> int:
@@ -694,6 +786,7 @@ def phase_kernel_vs_plain() -> dict:
             s1_err = float((ts_k - ts_p).abs().max())
             s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
             swaps = float((ti_k != ti_p).float().mean())
+            merge = _merge_case(ts_k, ti_k, K, f"flat shape {ctype} {metric}")
             ks, ki = fs.flat_scan_topk(*args, **kw)
             ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
             bad, differ, final_err = _check_final(ks, ki, ps, pi)
@@ -716,7 +809,8 @@ def phase_kernel_vs_plain() -> dict:
             if (ctype, metric) == ("fp32", "L2"):
                 main_case = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms,
                                  bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                                 library_ms=case_lib_ms, roofline=bound["bound_ms"] / k_ms, **path)
+                                 library_ms=case_lib_ms, roofline=bound["bound_ms"] / k_ms, **path,
+                                 merge=merge)
             del codes, norms
     return main_case
 
@@ -753,9 +847,8 @@ def _data():
 
 def phase_main_path(workdir: Path, qset, X, base: dict) -> int:
     import zvec_tpu_torch as zt
-    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
 
-    flat_scan_topk.launches = 0
+    _zero_launches()
     zt.init()
     schema = zt.CollectionSchema(
         "bench1m",
@@ -780,7 +873,7 @@ def phase_main_path(workdir: Path, qset, X, base: dict) -> int:
         out = col.batch_query_many("vec", [qset[i % 4] for i in range(iters)], topk=K, output_fields=[])
         times.append((time.perf_counter() - t1) / iters)
     batch_s = min(times)
-    launches = flat_scan_topk.launches
+    launches = _path_launches("flat_search")
     log(f"main path: {batch_s * 1e3:.2f} ms per 1024-query batch, {Q / batch_s:.1f} qps "
         f"(batch_query_many, {iters} blocks, best of 2); kernel launches {launches}")
 
@@ -926,7 +1019,9 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
         s1_text = (f"ids moved {int(moved.sum())} ({swaps:.2e}), max |dkey| among them {moved_dkey:.3g}; "
                    f"max |key - exact key of its id| {own_err:.3g} ({outside} outside tolerance, {repeats} "
                    f"repeated ids)")
-    del ts_k, ti_k, ts_p, ti_p, moved
+    del ts_p, ti_p, moved
+    merge = _merge_case(ts_k, ti_k, K_BUILD, f"{label} {metric}")
+    del ts_k, ti_k
     ks, ki = fs.flat_scan_topk(*args, **kw)
     ps, pi = fs.flat_scan_topk_plain(*args, **kw)
     if own_width is None:
@@ -957,7 +1052,7 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
         raise AssertionError(f"kernel disagrees with plain version at the {label}: {metric}")
     return dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, full_ms=kf_ms, full_plain_ms=pf_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
-                roofline=bound["bound_ms"] / k_ms, **path, **unpadded)
+                roofline=bound["bound_ms"] / k_ms, **path, **unpadded, merge=merge)
 
 
 def phase_kernel_build_shape() -> dict:
@@ -1192,7 +1287,7 @@ def phase_hnsw(workdir: Path, qset, X, base: dict) -> int:
     )
     grp = np.random.default_rng(SEED + 3).integers(0, GRP_VALUES, N)
     path = workdir / "hnsw1m"
-    flat_scan_topk.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     col = zt.create_and_open(str(path), schema)
     for lo in range(0, N, 1024):
@@ -1202,7 +1297,7 @@ def phase_hnsw(workdir: Path, qset, X, base: dict) -> int:
     col.optimize()
     t_build = time.perf_counter() - t0 - t_insert
     col.flush()
-    launches = flat_scan_topk.launches
+    launches = _path_launches("hnsw_build")
     seg = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0)
     engine = seg.engine_for("vec")
     bt = engine.build_times
@@ -1379,7 +1474,6 @@ def _probe_check(engine, queries: np.ndarray, dev: torch.device, label: str = "i
 def phase_ivf(workdir: Path, dev: torch.device, base: dict) -> int:
     """The IVF path: train on the card, sweep nprobe, filter, check, reopen."""
     import zvec_tpu_torch as zt
-    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
     from zvec_tpu_torch.ops.kmeans import lloyd
 
     X, queries, tags, price = _ivf_data()
@@ -1393,7 +1487,7 @@ def phase_ivf(workdir: Path, dev: torch.device, base: dict) -> int:
                                  zt.IVFIndexParam(zt.MetricType.L2, use_soar=True))],
     )
     path = workdir / "ivf1m"
-    flat_scan_topk.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     col = zt.create_and_open(str(path), schema)
     for lo in range(0, IVF_N, 1024):
@@ -1475,7 +1569,7 @@ def phase_ivf(workdir: Path, dev: torch.device, base: dict) -> int:
         f"near-ties); path: {fpath}")
     if (short & ~near_tie).any():
         raise AssertionError("ivf: filtered recall@10 below 1.0 outside near-ties")
-    launches = flat_scan_topk.launches
+    launches = _path_launches("ivf")
     del xd
     torch.cuda.empty_cache()
 
@@ -1707,7 +1801,7 @@ def phase_hnsw_clustered(workdir: Path, dev: torch.device, base: dict, keep: boo
                                  zt.HnswIndexParam(zt.MetricType.L2, m=50, ef_construction=500))],
     )
     path = workdir / "hnsw_clustered"
-    flat_scan_topk.launches = 0
+    _zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     col = zt.create_and_open(str(path), schema)
@@ -1720,7 +1814,7 @@ def phase_hnsw_clustered(workdir: Path, dev: torch.device, base: dict, keep: boo
     col.optimize()
     t_build = time.perf_counter() - t0 - t_insert
     col.flush()
-    launches = flat_scan_topk.launches
+    launches = _path_launches("hnsw_clustered_build")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     seg = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0)
     engine = seg.engine_for("vec")
@@ -1892,6 +1986,7 @@ def _k1_at_writing_shape(engine, alive: np.ndarray, fmask: np.ndarray, queries: 
         s1_err = float((ts_k - ts_p).abs().max())
         s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
         swaps = float((ti_k != ti_p).float().mean())
+        merge = _merge_case(ts_k, ti_k, K, f"live writing shape, {label}")
         ks, ki = fs.flat_scan_topk(*args, **kw)
         ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
         bad, differ, final_err = _check_final(ks, ki, ps, pi)
@@ -1905,7 +2000,7 @@ def _k1_at_writing_shape(engine, alive: np.ndarray, fmask: np.ndarray, queries: 
             pf_ms = time_ms(lambda: fs.flat_scan_topk_plain(*args, **kw))
             out = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, full_ms=kf_ms, full_plain_ms=pf_ms,
                        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
-                       roofline=bound["bound_ms"] / k_ms)
+                       roofline=bound["bound_ms"] / k_ms, merge=merge)
             times = (f"; stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; full scan {kf_ms:.3f} ms vs plain "
                      f"{pf_ms:.3f} ms; " + _bound_text(bound, k_ms, lib_ms))
         else:
@@ -1941,7 +2036,7 @@ def phase_live(dev: torch.device, base: dict) -> tuple:
     X, queries, grp, tags, price = cl["X"], cl["queries"], cl["grp"], cl["tags"], cl["price"]
     n = X.shape[0]
     n_all = n + LV_INSERT
-    flat_scan_topk.launches = 0
+    _zero_launches()
     sealed_id = f"seg_{col._impl.segments[0].meta.segment_id}"
     qd = torch.from_numpy(queries).to(dev)
 
@@ -2169,13 +2264,13 @@ def phase_live(dev: torch.device, base: dict) -> tuple:
             f"max |score| {float(np.abs(sc[:, 0]).max()):.3g} (exact 0), max |score - live vector's| {err:.3g}")
         if first != LV_RYW:
             raise AssertionError(f"live C: {LV_RYW - first} {label} are not their own nearest")
-    launches = flat_scan_topk.launches
+    launches = _path_launches("live")
     log(f"live C: K1 launches in the phase so far {launches} (the writing segment's scans)")
     if launches == 0:
         raise AssertionError("live C: K1 never scanned the writing segment")
     fmask = LV_FILTERS["tag = 't3' AND price < 0.1"](l_tags[w_pks], l_price[w_pks])
     k1_case = _k1_at_writing_shape(weng, w_alive, fmask, queries)
-    flat_scan_topk.launches = launches  # the checks' launches are not the path's
+    _restore_launches(launches)  # the checks' launches are not the path's
 
     # ---- E. a crash and the WAL replay ----
     path = impl.path
@@ -2227,7 +2322,7 @@ def phase_live(dev: torch.device, base: dict) -> tuple:
     log(f"live E: leg C's four batches return identical ids after the replay, max |dscore| {worst:.3g}")
     col._impl.close()
     log(f"live: K1 launches in the phase {flat_scan_topk.launches} (the writing segment's scans)")
-    return flat_scan_topk.launches, k1_case
+    return _path_launches("live"), k1_case
 
 
 def cohere_centers() -> np.ndarray:
@@ -2341,7 +2436,7 @@ def phase_cohere(workdir: Path, dev: torch.device) -> int:
         zt.HnswIndexParam(zt.MetricType.COSINE, m=50, ef_construction=500,
                           quantize_type=QuantizeType.INT8))])
     path = workdir / "cohere"
-    fs.flat_scan_topk.launches = 0
+    _zero_launches()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2353,7 +2448,7 @@ def phase_cohere(workdir: Path, dev: torch.device) -> int:
     col.optimize()
     t_opt = time.perf_counter() - t0 - t_insert
     col.flush()
-    launches = fs.flat_scan_topk.launches
+    launches = _path_launches("cohere_build")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     engine = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
     bt, info = engine.build_times, engine.build_info
@@ -2618,7 +2713,6 @@ def phase_sparse(workdir: Path, dev: torch.device) -> int:
     build picked by the size rule, the beam at three ef, the flat scan, reopen."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.core.hnsw_sparse import SparseHnswEngine
-    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
     from zvec_tpu_torch.ops.hnsw_sparse import hnsw_sparse_search
     from zvec_tpu_torch.ops.kmeans import lloyd
 
@@ -2629,7 +2723,7 @@ def phase_sparse(workdir: Path, dev: torch.device) -> int:
                                  zt.HnswIndexParam(zt.MetricType.IP, m=16, ef_construction=200))],
     )
     path = workdir / "sparse"
-    flat_scan_topk.launches = 0
+    _zero_launches()
     torch.cuda.reset_peak_memory_stats()
     col = zt.create_and_open(str(path), schema)
     chunks, t_make, t_insert = [], 0.0, 0.0
@@ -2650,7 +2744,7 @@ def phase_sparse(workdir: Path, dev: torch.device) -> int:
     col.optimize()
     t_build = time.perf_counter() - t0
     col.flush()
-    launches = flat_scan_topk.launches
+    launches = _path_launches("sparse")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     seg = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0)
     engine = seg.engine_for("sv")
@@ -2819,7 +2913,7 @@ def phase_fusion(workdir: Path) -> int:
     def fused(i):
         return col.query(groups[i], topk=K, reranker=rr, output_fields=[])
 
-    flat_scan_topk.launches = 0
+    _zero_launches()
     fused(0)  # warm both engines
     fused(1)
     lats, answers = [], []
@@ -2831,7 +2925,7 @@ def phase_fusion(workdir: Path) -> int:
     t1 = time.perf_counter()
     batched = col.batch_fused_query(groups, topk=K, reranker=rr, output_fields=[])
     batched_s = time.perf_counter() - t1
-    launches = flat_scan_topk.launches
+    launches = _path_launches("fusion")
     del impl.fused_pair_dispatch
     if len(taken) != FU_Q + 4 or any(fin is None for fin in taken):
         raise AssertionError("fusion: a fused query did not take fused_pair_dispatch")
@@ -2942,7 +3036,7 @@ def phase_tools(workdir: Path, dev: torch.device) -> int:
                 "--limit", str(TL_GT_Q)]
 
     flat = str(d / "flat")
-    flat_scan_topk.launches = 0
+    _zero_launches()
     out = _run_tool(build, ["--output", flat, "--vectors", base, "--index", "flat"])
     log(f"tools flat: tools.build --index flat: {out['docs']} docs, insert {out['insert_s']} s, "
         f"index build {out['index_build_s']} s")
@@ -2950,7 +3044,7 @@ def phase_tools(workdir: Path, dev: torch.device) -> int:
     log(f"tools flat: tools.recall: recall@1 {rec['recall@1']:.4f}, recall@10 {rec['recall@10']:.4f} on "
         f"{rec['queries']} queries, {rec['avg_latency_ms']:.3f} ms per query")
     _tools_bench(flat, qf, "flat")
-    launches = flat_scan_topk.launches
+    launches = _path_launches("tools_flat")
     log(f"tools flat: K1 launches on the FLAT collection's path (build, recall, bench) {launches}")
     if rec["recall@10"] != 1.0 or rec["queries"] != TL_GT_Q:
         raise AssertionError("tools flat: recall@10 of the exact scan is not 1.0")
@@ -2958,7 +3052,7 @@ def phase_tools(workdir: Path, dev: torch.device) -> int:
         raise AssertionError("tools flat: the FLAT query path never launched the flat-scan kernel")
 
     hnsw = str(d / "hnsw")
-    flat_scan_topk.launches = 0
+    _zero_launches()
     out = _run_tool(build, ["--output", hnsw, "--vectors", base, "--index", "hnsw"])
     log(f"tools hnsw: tools.build --index hnsw (m 16, ef_construction 200): {out['docs']} docs, insert "
         f"{out['insert_s']} s, index build {out['index_build_s']} s; K1 launches in the build "
@@ -3076,7 +3170,7 @@ def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
         # ---- FLAT: phase 4's collection ----
         qset, X = _data()
         col = zt.open(str(workdir / "bench1m"))
-        flat_scan_topk.launches = 0
+        _zero_launches()
         first = col.batch_query("vec", qset[0], topk=K, output_fields=[])
         iters = 8
         times = []
@@ -3084,7 +3178,7 @@ def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
             t1 = time.perf_counter()
             col.batch_query_many("vec", [qset[i % 4] for i in range(iters)], topk=K, output_fields=[])
             times.append((time.perf_counter() - t1) / iters)
-        launches["mesh_flat"] = flat_scan_topk.launches
+        launches["mesh_flat"] = _path_launches("mesh_flat")
         st = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")._st
         log(f"mesh flat: {N} x {D} in {len(st.codes)} shards ({_shard_text(st.codes)} rows); "
             f"{min(times) * 1e3:.2f} ms per 1024-query batch (batch_query_many, {iters} blocks, best of "
@@ -3111,11 +3205,11 @@ def phase_mesh(workdir: Path, dev: torch.device, base: dict) -> dict:
 
         # ---- HNSW: phase 6's collection; its graph file holds no shards ----
         col = zt.open(str(workdir / "hnsw1m"))
-        flat_scan_topk.launches = 0
+        _zero_launches()
         t1 = time.perf_counter()
         col.create_index("vec", zt.HnswIndexParam(zt.MetricType.L2, knn_k=MESH_KNN_K))
         t_build = time.perf_counter() - t1
-        launches["mesh_hnsw_build"] = flat_scan_topk.launches
+        launches["mesh_hnsw_build"] = _path_launches("mesh_hnsw_build")
         engine = next(s for s in col._impl._segments_snapshot() if s.doc_count > 0).engine_for("vec")
         d = engine._dev
         log(f"mesh hnsw: create_index(knn_k={MESH_KNN_K}) built {MESH_SHARDS} shard graphs in {t_build:.2f} s "
@@ -3366,11 +3460,13 @@ def phase_kernel_new_shapes() -> dict:
     norms = (x * x).sum(1)
     kw = dict(metric=MetricType.L2, topk=K, exact_tf32=True)  # as FlatEngine asks for +-1 codes
     args = (q, x, norms, mask)
-    ts_k, _ = fs.flat_scan_stage1(*args, **kw)
+    ts_k, ti_k = fs.flat_scan_stage1(*args, **kw)
     ts_p, _ = fs.flat_scan_stage1(*args, plain=True, **kw)
     torch.cuda.synchronize()
     s1_err = float((ts_k - ts_p).abs().max())  # integer keys: 0 unless a key is wrong
-    del ts_k, ts_p
+    del ts_p
+    merge = _merge_case(ts_k, ti_k, K, "hamming shape (integer keys)")
+    del ts_k, ti_k
     ks, ki = fs.flat_scan_topk(*args, **kw)
     ps, pi = fs.flat_scan_topk_plain(*args, **kw)
     bad, differ, final_err = _check_final_at_k(ks, ki, ps, pi, rtol=0.0)
@@ -3394,7 +3490,7 @@ def phase_kernel_new_shapes() -> dict:
         raise AssertionError("kernel disagrees with plain version at the hamming shape")
     out["hamming_flat_shape"] = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound["bound_ms"],
                                      bound_by=bound["bound_by"], library_ms=lib_ms, roofline=bound["bound_ms"] / k_ms,
-                                     three_pass_ms=three_ms, **path)
+                                     three_pass_ms=three_ms, **path, merge=merge)
     del x, q, mask, norms, args
     torch.cuda.empty_cache()
     out["fp16_glove_flat_shape"] = _k1_fp16_glove_shape(g)
@@ -3426,7 +3522,9 @@ def _k1_fp16_glove_shape(g: torch.Generator) -> dict:
     s1_err = float((ts_k - ts_p).abs().max())
     s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
     swaps = float((ti_k != ti_p).float().mean())
-    del ts_k, ti_k, ts_p, ti_p
+    del ts_p, ti_p
+    merge = _merge_case(ts_k, ti_k, K, "fp16 GloVe-100 shape")
+    del ts_k, ti_k
     ks, ki = fs.flat_scan_topk(*args, **kw)
     ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
     bad, differ, final_err = _check_final(ks, ki, ps, pi)
@@ -3443,7 +3541,7 @@ def _k1_fp16_glove_shape(g: torch.Generator) -> dict:
         raise AssertionError("kernel disagrees with plain version at the fp16 GloVe-100 shape")
     del codes, norms, mask, q, args
     return dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                library_ms=None, roofline=bound["bound_ms"] / k_ms, **path)
+                library_ms=None, roofline=bound["bound_ms"] / k_ms, **path, merge=merge)
 
 
 def phase_mips(workdir: Path, dev: torch.device) -> int:
@@ -3452,7 +3550,6 @@ def phase_mips(workdir: Path, dev: torch.device) -> int:
     at D = 201, recall against the exact IP oracle at MI_EFS, scores as inner
     products, the beam card against CPU, reopen. Returns K1's launches in the build."""
     import zvec_tpu_torch as zt
-    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
     from zvec_tpu_torch.ops.hnsw import hnsw_search
     from zvec_tpu_torch.ops.quantize import mips_augment_query
 
@@ -3467,14 +3564,14 @@ def phase_mips(workdir: Path, dev: torch.device) -> int:
         raise AssertionError(f"mips: HnswIndexParam()'s defaults moved: {param}")
     schema = zt.CollectionSchema("t2i", vectors=[zt.VectorSchema("vec", zt.DataType.VECTOR_FP32, MI_D, param)])
     path = workdir / "t2i"
-    flat_scan_topk.launches = 0
+    _zero_launches()
     col = zt.create_and_open(str(path), schema)
     t_insert = _insert_all(col, MI_N, lambda i: zt.Doc(id=str(i), vectors={"vec": X[i]}))
     t0 = time.perf_counter()
     col.optimize()
     t_opt = time.perf_counter() - t0
     col.flush()
-    launches = flat_scan_topk.launches
+    launches = _path_launches("mips_build")
     engine = _first_engine(col)
     bt = engine.build_times
     log(f"mips: insert {t_insert:.2f} s, optimize {t_opt:.2f} s, of which the engine build "
@@ -3547,7 +3644,6 @@ def phase_compact(workdir: Path, dev: torch.device, base: dict) -> tuple:
     (K1's launches in the rebuild, the K1 case)."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.ops import flat_scan as fs
-    from zvec_tpu_torch.ops.flat_scan import flat_scan_topk
 
     qset, X = _data()
     grp = np.random.default_rng(SEED + 3).integers(0, GRP_VALUES, N)  # phase 6's field
@@ -3582,7 +3678,7 @@ def phase_compact(workdir: Path, dev: torch.device, base: dict) -> tuple:
         built.append(time.perf_counter() - t1)
 
     impl._build_indexes_for = timed_build
-    flat_scan_topk.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     try:
         col.optimize()
@@ -3590,7 +3686,7 @@ def phase_compact(workdir: Path, dev: torch.device, base: dict) -> tuple:
         del impl._build_indexes_for
     t_opt = time.perf_counter() - t0
     col.flush()
-    launches = flat_scan_topk.launches
+    launches = _path_launches("compact_build")
     segs = [s for s in impl._segments_snapshot() if s.doc_count > 0]
     engine = segs[0].engine_for("vec")
     bt = engine.build_times
@@ -3619,7 +3715,7 @@ def phase_compact(workdir: Path, dev: torch.device, base: dict) -> tuple:
     bound = _bound(Q_BUILD, n_pad, D, K_BUILD, fs.pick_tile(n_pad, K_BUILD), x)
     case = _k1_at_build_shape(x, mask, q, sq, "L2", "compaction rebuild shape (beside the other workers)", bound,
                               _library_ms(q, x))
-    flat_scan_topk.launches = launches  # the comparison's launches are not the path's
+    _restore_launches(launches)  # the comparison's launches are not the path's
     del x, sq, mask, q
 
     _, oi = _exact_oracle(torch.from_numpy(X[survivors]).to(dev), torch.from_numpy(qset[0]).to(dev))
@@ -3674,7 +3770,7 @@ def _codes_flat(workdir: Path, dev: torch.device) -> int:
     oracle = {"L2": _exact_oracle(xd, qd)[1][:, :K].cpu().numpy(), "IP": _ip_oracle(xd, qd, K)[1].cpu().numpy()}
     del xd
     launches = 0
-    fs.flat_scan_topk.launches = 0
+    _zero_launches()
     for f, (m, q) in CD_FLAT_FIELDS.items():
         engine = _first_engine(col, f)
         for refine in ((False, True) if q else (None,)):
@@ -3692,7 +3788,7 @@ def _codes_flat(workdir: Path, dev: torch.device) -> int:
                 raise AssertionError(f"codes flat {f}: the scan at k = {K} never launched the flat-scan kernel")
             if refine is None and _recall(ids, oracle[m]) < 1.0 - 1e-3:
                 raise AssertionError(f"codes flat {f}: the exact fp32 scan reads below 1.0")
-        launches = fs.flat_scan_topk.launches
+        launches = _path_launches("codes_flat")
         # K1's answer (the engine's own scan, refine off) against its plain
         # version on the same device codes, norms and mask
         sims, idx = engine.search(queries, K, None, FlatQueryParam(is_using_refiner=False))
@@ -3706,7 +3802,7 @@ def _codes_flat(workdir: Path, dev: torch.device) -> int:
         log(f"codes flat {f}: K1 on the engine's codes vs its plain version: rows differing {differ} (outside "
             f"near-ties {bad}), max |dscore| {err:.3g}; stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms (beside the "
             f"other workers); " + _bound_text(bound, k_ms, _library_ms(qd, st.codes)))
-        fs.flat_scan_topk.launches = launches  # the comparison's launches are not the path's
+        _restore_launches(launches)  # the comparison's launches are not the path's
         if bad:
             raise AssertionError(f"codes flat {f}: K1 disagrees with its plain version on the engine's codes")
     col._impl.close()
@@ -3878,10 +3974,10 @@ def phase_hamming(workdir: Path, dev: torch.device) -> int:
         t_opt = time.perf_counter() - t0
         col.flush()
         engine = _first_engine(col, "code")
-        fs.flat_scan_topk.launches = 0
+        _zero_launches()
         if index == "flat":
             ids, scores, batch_s = _timed_batch(col, "code", qpacked, None)
-            launches = fs.flat_scan_topk.launches
+            launches = _path_launches("hamming_flat")
             recall = tie_recall(ids, scores, kth)
             st = engine._st
             log(f"hamming flat: {n} rows: insert {t_insert:.2f} s, optimize {t_opt:.2f} s; {batch_s * 1e3:.2f} ms "
@@ -3898,7 +3994,7 @@ def phase_hamming(workdir: Path, dev: torch.device) -> int:
                 f"({bad} outside exact ties), max |dscore| {err:.3g}")
             if bad or err:
                 raise AssertionError("hamming flat: the card's answers disagree with the plain version")
-            fs.flat_scan_topk.launches = launches
+            _restore_launches(launches)
         else:
             bt = engine.build_times
             log(f"hamming hnsw: {n} rows: insert {t_insert:.2f} s, optimize {t_opt:.2f} s: "
@@ -3933,8 +4029,8 @@ def _lap_printer(label: str):
 
 
 def run_group(phases: tuple, workdir: Path) -> dict:
-    """One group's phases, one after another in this process: their launch
-    counts by path and the K1 cases they measured."""
+    """One group's phases, one after another in this process: K1's and the
+    merge kernel's launch counts by path and the K1 cases they measured."""
     lap = _lap_printer("the worker's start")
     dev = torch.device("cuda")
     launches, cases = {}, {}
@@ -4009,7 +4105,7 @@ def run_group(phases: tuple, workdir: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         lap("codes")
-    return dict(launches=launches, cases=cases)
+    return dict(launches=launches, merge_launches=dict(MERGE_LAUNCHES), cases=cases)
 
 
 def _die_with_parent() -> None:
@@ -4034,11 +4130,11 @@ def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
     GROUP_DEADLINE_S after t_run. Returns the workers' results merged."""
     groups = [g for g in (tuple(p for p in grp if p in phases) for grp in GROUPS) if g]
     if not groups:
-        return dict(launches={}, cases={})
+        return dict(launches={}, merge_launches={}, cases={})
     threads = str(max(1, len(os.sched_getaffinity(0)) // len(groups)))
     env = dict(os.environ, **{PARENT_ENV: str(os.getpid()), "OMP_NUM_THREADS": threads,
                               "OPENBLAS_NUM_THREADS": threads, "MKL_NUM_THREADS": threads})
-    procs, printed, merged = [], set(), dict(launches={}, cases={})
+    procs, printed, merged = [], set(), dict(launches={}, merge_launches={}, cases={})
 
     def show(i: int, status: str) -> None:
         printed.add(i)
@@ -4065,6 +4161,7 @@ def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
                                      f"failed with exit code {p.returncode}")
                 res = json.loads((workdir / f"group{i}.json").read_text())
                 merged["launches"].update(res["launches"])
+                merged["merge_launches"].update(res["merge_launches"])
                 merged["cases"].update(res["cases"])
             if len(printed) < len(procs) and time.perf_counter() - t_run > GROUP_DEADLINE_S:
                 raise SystemExit(f"chip_smoke: workers still running {GROUP_DEADLINE_S} s after the start")
@@ -4082,7 +4179,8 @@ def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
                                                "live", "cohere_build", "sparse", "fusion", "tools_flat",
                                                "mesh_flat", "mesh_hnsw_build", "compact_build", "mips_build",
                                                "codes_flat", "hamming_flat"))}
-    merged["launches"] = dict(sorted(merged["launches"].items(), key=lambda kv: order.get(kv[0], len(order))))
+    for key in ("launches", "merge_launches"):
+        merged[key] = dict(sorted(merged[key].items(), key=lambda kv: order.get(kv[0], len(order))))
     return merged
 
 
@@ -4128,10 +4226,24 @@ def main() -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches, cases = merged["launches"], merged["cases"]
+    if merged["merge_launches"] != launches:
+        raise SystemExit(f"chip_smoke: the merge kernel's launches by path {merged['merge_launches']} are not "
+                         f"K1's {launches}")
     log(smi)
     if phases != PHASES:
         log(f"partial run ({','.join(phases)}): no result line")
         return
+    k1_cases = {"hnsw_build_shape": build_case, "cohere_build_shape": cohere_case,
+                "cohere_ip_build_shape": cohere_ip_case, "live_writing_shape": cases.get("live_writing_shape"),
+                "compact_rebuild_shape": cases.get("compact_rebuild_shape"), **new_cases}
+    # the merge's cases ride in K1's, one per stage-one output they share
+    merge_cases = {"flat_shape": case.pop("merge")}
+    for shape, c in k1_cases.items():
+        if shape == "hnsw_build_shape":
+            merge_cases.update({f"hnsw_build_shape_{m}": c[m].pop("merge") for m in c})
+        else:
+            merge_cases[shape] = c.pop("merge")
+    head = merge_cases["hnsw_build_shape_L2"]
     print(json.dumps({"kernels": [{
         "name": "flat_scan_topk (stage one: fused scan + group-max top-k)",
         "route": "cuda",
@@ -4146,12 +4258,22 @@ def main() -> None:
         "bound_by": case["bound_by"],
         "library_ms": case["library_ms"],
         "roofline": case["roofline"],
-        "hnsw_build_shape": build_case,
-        "cohere_build_shape": cohere_case,
-        "cohere_ip_build_shape": cohere_ip_case,
-        "live_writing_shape": cases.get("live_writing_shape"),
-        "compact_rebuild_shape": cases.get("compact_rebuild_shape"),
-        **new_cases,
+        **k1_cases,
+    }, {
+        "name": "flat_scan_topk (the global merge of the tile winners; HNSW build shape, L2)",
+        "route": "cuda",
+        "source": "zvec_tpu_torch/csrc/flat_merge.cu",
+        "replaces": "zvec_tpu/ops/flat_pallas.py:255",
+        "launches": sum(merged["merge_launches"].values()),
+        "launches_by_path": merged["merge_launches"],
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "roofline": head["roofline"],
+        **merge_cases,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

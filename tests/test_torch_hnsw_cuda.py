@@ -56,6 +56,23 @@ def test_knn_build_step_launches_kernel(cuda, metric):
     assert (outs[0] == outs[1]).all(axis=1).mean() >= 0.99
 
 
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+def test_knn_build_step_repeats_bitwise(cuda, metric):
+    """The build step above, five times on the card on the same inputs: the
+    same adjacency bit for bit (K1, the merge kernel and the prune hold no
+    atomics whose order moves)."""
+    n, knn_k, max_out = 8192, 127, 32
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, 24)).astype(np.float32)).to(cuda)
+    norms2 = (x * x).sum(1)
+    outs = []
+    for _ in range(5):
+        adj = torch.full((n, max_out), -1, dtype=torch.int32, device=cuda)
+        ops.knn_build_step(torch.arange(2048, device=cuda), x, norms2, torch.ones(n, dtype=torch.int8, device=cuda),
+                           adj, metric=MetricType[metric], knn_k=knn_k, max_out=max_out)
+        outs.append(adj)
+    assert all(torch.equal(a, outs[0]) for a in outs[1:])
+
+
 def test_engine_on_card_matches_cpu_beam(cuda):
     n, d = 20000, 32
     rng = np.random.default_rng(1)

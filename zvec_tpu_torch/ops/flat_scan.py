@@ -1,19 +1,22 @@
 """Fused flat scan: distance tile + mask + group-max top-k, then exact rescore.
 
-Port of `zvec_tpu/ops/flat_pallas.py` (the Pallas kernel `_kernel` behind
-`flat_scan_topk`). Stage one is the hand-written CUDA kernel
-`csrc/flat_scan.cu` on the card and `_stage1_plain` (plain PyTorch, the same
-function) on the CPU: for each tile of TILE_N code rows it keeps, per query,
-the top-k of the (Q, 128) group-max of a rank-equivalent key. Stage two is
-plain PyTorch, as it was plain XLA in JAX: merge the winner groups globally,
-expand them to topk*GROUP candidate rows, gather those rows and rescore them
-exactly in float32 under the real metric, take the final top-k.
+Port of `zvec_tpu/ops/flat_pallas.py::flat_scan_topk` (the Pallas kernel
+`_kernel` and what the function does after it). Two hand-written CUDA
+kernels run on the card, each beside its plain PyTorch version, which the
+CPU runs: stage one, `csrc/flat_scan.cu` / `_stage1_plain`, keeps per tile
+of TILE_N code rows, per query, the top-k of the (Q, 128) group-max of a
+rank-equivalent key; the global merge, `csrc/flat_merge.cu` /
+`_merge_plain` (`flat_pallas.py:255-258`), takes a query's top-k of those
+tile winners, bit for bit the same. The rest stays plain PyTorch, as it was
+plain XLA in JAX: expand the winner groups to topk*GROUP candidate rows,
+gather those rows and rescore them exactly in float32 under the real
+metric, take the final top-k.
 
 Exactness (flat_pallas.py:27-32): every element of the true top-k is the
 witness of its own group's max, so the k groups with the largest maxima cover
 the answer; the rescore then gives exact float32 scores.
 
-What bounds the kernel on an H100: at 1M x 128 fp32 codes and Q = 1024 the
+What bounds stage one on an H100: at 1M x 128 fp32 codes and Q = 1024 the
 scan is 0.26 TFLOP against 0.5 GB of codes, so it is bound by arithmetic, not
 by device memory. The kernel runs the products on the tensor cores in split
 TF32 (three TF32 products per fp32 pair, two for fp16 / int8 / int4 codes),
@@ -24,7 +27,12 @@ field) one TF32 product gives the same keys exactly, and the kernel runs
 that one. The code rows reach the kernel's ring by asynchronous copies of
 the widest size their stride and address allow (`copy_bytes`).
 
-The kernel is built at first use from `csrc/*.cu` with nvcc into
+The merge reads the keys stage one sorted: the k-th largest of a query's
+tile maxima bounds its k-th largest key from below, so only each tile's
+prefix above that bound is read (see the note at the top of
+`csrc/flat_merge.cu`).
+
+The kernels are built at first use from `csrc/*.cu` with nvcc into
 `_build/` (a plain C interface loaded with ctypes), keyed by a hash of the
 sources.
 """
@@ -50,6 +58,7 @@ __all__ = [
     "flat_scan_topk",
     "flat_scan_topk_plain",
     "flat_scan_stage1",
+    "flat_scan_merge",
     "copy_bytes",
     "pick_tile",
     "build_kernels",
@@ -132,6 +141,10 @@ def _library():
             lib.zvec_flat_scan.restype = ctypes.c_int
             lib.zvec_flat_scan_scratch_floats.argtypes = [i, i, i, i]  # ctype nq dk ld
             lib.zvec_flat_scan_scratch_floats.restype = ctypes.c_longlong
+            lib.zvec_flat_merge.argtypes = [
+                p, p, p, p, ctypes.c_longlong, i, i, p,  # tile_s tile_i out_s out_i n_tiles topk nq stream
+            ]
+            lib.zvec_flat_merge.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -290,20 +303,73 @@ def _stage1(args, kw, plain):
     return _stage1_kernel(*args, **kw)
 
 
+def _merge_plain(tile_s, tile_i, topk):
+    """The global merge in plain PyTorch: (tile, k, Q) -> (Q, tile*k), a stable
+    descending sort, the first topk keys and their ids (int64)."""
+    n_tiles, _, nq = tile_s.shape
+    keys = tile_s.permute(2, 0, 1).reshape(nq, n_tiles * topk)
+    ids = tile_i.permute(2, 0, 1).reshape(nq, n_tiles * topk).long()
+    top_s, sel = topk_desc(keys, topk)
+    return top_s, torch.take_along_dim(ids, sel, dim=1)
+
+
+def _merge_kernel(tile_s, tile_i, topk):
+    """Launch `csrc/flat_merge.cu` on stage one's CUDA output; raises on
+    anything the kernel does not take or on a failed launch. Each tile's keys
+    must come sorted descending, as both stage ones write them."""
+    dev = tile_s.device
+    if dev.type != "cuda" or tile_i.device != dev:
+        raise ValueError("flat merge kernel: tile_s and tile_i must be on one CUDA device")
+    if (tile_s.dtype, tile_i.dtype) != (torch.float32, torch.int32):
+        raise ValueError("flat merge kernel: tile_s f32 and tile_i int32")
+    if tile_s.dim() != 3 or tile_s.shape != tile_i.shape or tile_s.shape[1] != topk:
+        raise ValueError("flat merge kernel: tile_s and tile_i must be (n_tiles, topk, Q)")
+    if not (tile_s.is_contiguous() and tile_i.is_contiguous()):
+        raise ValueError("flat merge kernel: inputs must be contiguous")
+    n_tiles, _, nq = tile_s.shape
+    top_s = torch.empty((nq, topk), dtype=torch.float32, device=dev)
+    gids = torch.empty((nq, topk), dtype=torch.int64, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.zvec_flat_merge(tile_s.data_ptr(), tile_i.data_ptr(), top_s.data_ptr(),
+                                 gids.data_ptr(), n_tiles, topk, nq, stream)
+    if rc != 0:
+        raise RuntimeError(f"flat merge kernel launch failed: cudaError {rc} "
+                           f"(n_tiles {n_tiles}, topk {topk}, Q {nq})")
+    flat_scan_merge.launches += 1
+    return top_s, gids
+
+
+def _merge(tile_s, tile_i, topk, plain):
+    if plain or tile_s.device.type == "cpu":
+        return _merge_plain(tile_s, tile_i, topk)
+    return _merge_kernel(tile_s, tile_i, topk)
+
+
+def flat_scan_merge(tile_s, tile_i, *, topk):
+    """The global merge alone: stage one's (tile_s, tile_i), each (n_tiles,
+    topk, Q) with every tile's keys sorted descending, to (keys (Q, topk) f32
+    desc, group ids (Q, topk) int64), equal keys by the lower (tile, rank)
+    position. The kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    return _merge(tile_s, tile_i, topk, plain=False)
+
+
+flat_scan_merge.launches = 0  # merge kernel launches (not plain runs)
+
+
 def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain, exact_tf32=False):
     q, norms, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim, exact_tf32)
     tile_s, tile_i = _stage1(args, kw, plain)
     q_kern, qside, _, codes, _, mask8 = args
     metric, tile_n = kw["metric"], kw["tile_n"]
     nq, d = q.shape
-    n_tiles, group = tile_s.shape[0], tile_n // _LANES
+    group = tile_n // _LANES
 
-    # global merge over the per-tile winner groups ((tile, k, Q) -> (Q, tile*k));
-    # keys are rank-equivalent per query, so this picks the real winner groups
-    tile_s = tile_s.permute(2, 0, 1).reshape(nq, n_tiles * topk)
-    tile_i = tile_i.permute(2, 0, 1).reshape(nq, n_tiles * topk).long()
-    top_s, sel = topk_desc(tile_s, topk)
-    gids = torch.take_along_dim(tile_i, sel, dim=1)
+    # global merge over the per-tile winner groups; keys are rank-equivalent
+    # per query, so this picks the real winner groups
+    top_s, gids = _merge(tile_s, tile_i, topk, plain)
     valid_g = (gids >= 0) & (top_s > NEG_INF / 2)
 
     # group g of tile t covers rows t*TILE + (g % 128) + 128*j, j < GROUP
@@ -352,8 +418,8 @@ def flat_scan_topk(q, codes, norms, mask, *, metric, topk, dequant=None, int4_di
     runs one TF32 product, exact there; it raises unless the codes are fp32,
     the metric L2 and every query entry in {-1, 0, +1}.
 
-    CUDA tensors run stage one in the CUDA kernel, or raise; CPU tensors run
-    the plain version."""
+    CUDA tensors run stage one and the merge in their CUDA kernels, or raise;
+    CPU tensors run the plain versions."""
     return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=False,
                  exact_tf32=exact_tf32)
 
@@ -363,6 +429,6 @@ flat_scan_topk.launches = 0  # stage-one kernel launches (not plain runs)
 
 def flat_scan_topk_plain(q, codes, norms, mask, *, metric, topk, dequant=None,
                          int4_dim=None, exact_tf32=False):
-    """`flat_scan_topk` with stage one in plain PyTorch on any device."""
+    """`flat_scan_topk` with stage one and the merge in plain PyTorch on any device."""
     return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=True,
                  exact_tf32=exact_tf32)
