@@ -267,8 +267,21 @@ sorted tiles must move: every tile's maximum, each tile's keys down to the
 first one under the k-th largest maximum, the winners' ids and the outputs,
 counted on the card, over 3.35 TB/s; beside it the bound of a merge that
 reads every key) and torch.topk of the (Q, n_tiles * k) keys, its yardstick
-(the port never calls it). Every path counts both kernels' launches, and a
-path where they differ fails the run.
+(the port never calls it).
+
+The same phases hold the stage-two kernel (csrc/flat_rescore.cu: the
+candidate gather, exact fp32 rescore and final top-k) to its plain version
+on the merge of the same stage-one output: scores within rtol = atol =
+1e-4, ids equal outside near-ties (on the MIPS-augmented shapes, each id at
+its own fp64 score), and print its time beside the plain version's, its
+bound (the bytes of the distinct candidate rows of the batch, counted on the
+card with torch.unique, with their norms, mask bytes, the queries and the
+(Q, k) inputs and outputs, over 3.35 TB/s, against 2 Q C D FLOP over 67
+TFLOP/s; beside it the bound of one read per (query, candidate)), torch.bmm
+of the already-gathered fp32 rows (the product only, the port never calls
+it), and the full scan's ms and peak memory with the kernel and with the
+plain version in its place (`rescore <shape>` lines). Every path counts the
+three kernels' launches, and a path where they differ fails the run.
 
 The line before the last is a JSON object with each kernel's launches by
 path, error, times, bound and yardstick; the last line is {"ok": true,
@@ -321,6 +334,7 @@ PROBE_CHECK_Q, PROBE_CHECK_NPROBE = 64, 16
 PROBE_RTOL = 1e-4  # CUDA probe vs CPU probe: scores, and the width of a near-tie
 # published H100 SXM peaks (NVIDIA's data sheet), for the roofline bound of K1
 PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate
+PEAK_FP32_FLOPS = 67e12  # fp32 FMA rate outside the tensor cores (stage two's dots)
 PEAK_HBM_BYTES = 3.35e12  # device memory rate
 # phase 8: bench_10m_hnsw.py's deployment, rows cut from 10,000,000
 CL_N = 2_100_000  # still above the size rule's 2,000,000 rows
@@ -486,6 +500,7 @@ PARENT_ENV = "CHIP_SMOKE_PARENT"  # a worker's parent pid: the worker dies with 
 
 
 MERGE_LAUNCHES = {}  # the merge kernel's launches by path, read where K1's are
+RESCORE_LAUNCHES = {}  # the stage-two kernel's launches by path, read where K1's are
 
 
 def log(msg: str) -> None:
@@ -493,31 +508,35 @@ def log(msg: str) -> None:
 
 
 def _zero_launches() -> None:
-    """K1's and the merge kernel's launch counts set to 0 before a path runs."""
+    """K1's, the merge kernel's and the stage-two kernel's launch counts set
+    to 0 before a path runs."""
     from zvec_tpu_torch.ops import flat_scan as fs
 
-    fs.flat_scan_topk.launches = fs.flat_scan_merge.launches = 0
+    fs.flat_scan_topk.launches = fs.flat_scan_merge.launches = fs.flat_scan_rescore.launches = 0
 
 
 def _path_launches(path: str) -> int:
-    """K1's launches on `path` so far; the merge kernel's are recorded beside
-    them. Each scan of flat_scan_topk launches both once, so counts that
-    differ fail the run."""
+    """K1's launches on `path` so far; the merge kernel's and the stage-two
+    kernel's are recorded beside them. Each scan of flat_scan_topk launches
+    all three once, so counts that differ fail the run."""
     from zvec_tpu_torch.ops import flat_scan as fs
 
-    k1, merge = fs.flat_scan_topk.launches, fs.flat_scan_merge.launches
+    k1, merge, rescore = fs.flat_scan_topk.launches, fs.flat_scan_merge.launches, fs.flat_scan_rescore.launches
     MERGE_LAUNCHES[path] = merge
+    RESCORE_LAUNCHES[path] = rescore
     if merge != k1:
         raise AssertionError(f"{path}: the merge kernel launched {merge} times, K1 {k1}")
+    if rescore != k1:
+        raise AssertionError(f"{path}: the stage-two kernel launched {rescore} times, K1 {k1}")
     return k1
 
 
 def _restore_launches(n: int) -> None:
-    """Both counts back to a path's reading (where they were equal), after
-    launches that held a kernel to its plain version."""
+    """The three counts back to a path's reading (where they were equal),
+    after launches that held a kernel to its plain version."""
     from zvec_tpu_torch.ops import flat_scan as fs
 
-    fs.flat_scan_topk.launches = fs.flat_scan_merge.launches = n
+    fs.flat_scan_topk.launches = fs.flat_scan_merge.launches = fs.flat_scan_rescore.launches = n
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -629,6 +648,130 @@ def _merge_case(ts: torch.Tensor, ti: torch.Tensor, k: int, label: str) -> dict:
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                 library_ms=lib_ms, roofline=b["bound_ms"] / k_ms, keys_read=b["keys_read"],
                 full_read_bound_ms=b["full_read_bound_ms"])
+
+
+def _rescore_bound(cand: torch.Tensor, valid: torch.Tensor, mask: torch.Tensor, codes: torch.Tensor,
+                   nq: int, d: int, k: int, metric) -> dict:
+    """The least time the card could take for stage two on these winners: the
+    larger of its bytes over the memory rate and its fp32 FMA work (2 d FLOP
+    a scored candidate) over 67 TFLOP/s. Bytes, counted on the card from this
+    run's candidates: the mask byte of each distinct candidate row of a valid
+    group, the code row and norm (L2, COSINE) of each distinct one the mask
+    keeps (torch.unique over the batch), the queries and qside, the merge's
+    (Q, k) keys and ids read and the (Q, k) scores and ids written. Beside it
+    the bound of a kernel with no reuse across queries, each (query,
+    candidate) row read once."""
+    from zvec_tpu_torch.typing import MetricType
+
+    row_bytes = codes.shape[1] * codes.element_size() + (0 if metric == MetricType.IP else 4)
+    rows = cand[valid]
+    live = rows[mask[rows] != 0]
+    distinct_rows, distinct_live = int(torch.unique(rows).numel()), int(torch.unique(live).numel())
+    rest = nq * d * 4 + nq * 4 + 2 * nq * k * (4 + 8)
+    nbytes = distinct_rows + distinct_live * row_bytes + rest
+    each = rows.numel() + live.numel() * row_bytes + rest
+    flop = 2.0 * live.numel() * d
+    t_ops = flop / PEAK_FP32_FLOPS * 1e3
+    t_bytes, t_each = nbytes / PEAK_HBM_BYTES * 1e3, each / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bytes=nbytes, flop=flop, ops_ms=t_ops, distinct_rows=distinct_live, candidate_rows=int(live.numel()),
+                per_candidate_bound_ms=max(t_ops, t_each))
+
+
+@contextlib.contextmanager
+def _rescore_twin():
+    """flat_scan_topk with `_rescore_plain` in place of the stage-two kernel
+    (the full scan as it ran before the kernel, timed beside it)."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    prev = fs._rescore_kernel
+    fs._rescore_kernel = fs._rescore_plain
+    try:
+        yield
+    finally:
+        fs._rescore_kernel = prev
+
+
+def _peak_mib(fn) -> tuple:
+    """torch.cuda.max_memory_allocated over one call of fn, reset before it:
+    (the peak, the peak above what was allocated before), MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2**20, (peak - before) / 2**20
+
+
+def _rescore_case(args, kw, ts: torch.Tensor, ti: torch.Tensor, label: str, own=None, tie_rtol=TIE_RTOL) -> dict:
+    """The stage-two kernel against `_rescore_plain` on the merge of one
+    stage-one output (the scan's `args` and `kw`): scores within rtol = atol
+    = 1e-4, ids -1 exactly on NEG_INF, ids equal outside near-ties of
+    `tie_rtol`; or, with `own` = (q, x, norms, width) where the L2 epilogue
+    cancels (the build shapes, whose queries are code rows: each row's own
+    match scores ~0 from terms of |q|^2 + |x|^2, and the MIPS-augmented rows),
+    every id at its own fp64 score and every score at the plain score of its
+    rank within the row's width (raises otherwise). Then the
+    times, the bound, torch.bmm of the gathered fp32 rows (the product only),
+    and the full scan's ms and peak memory with the kernel and with the plain
+    version in its place."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    k = kw["topk"]
+    q, norms, pargs, pkw = fs._prepare(*args, kw["metric"], k, kw.get("dequant"), kw.get("int4_dim"),
+                                       kw.get("exact_tf32", False))
+    rargs, rkw = fs._rescore_inputs(q, norms, pargs, pkw, kw.get("dequant"))
+    top_s, gids = fs.flat_scan_merge(ts, ti, topk=k)
+    ks, ki = fs._rescore_kernel(*rargs, top_s, gids, **rkw)
+    ps, pi = fs._rescore_plain(*rargs, top_s, gids, **rkw)
+    torch.cuda.synchronize()
+    err = float((ks - ps).abs().max())
+    close = torch.allclose(ks, ps, rtol=1e-4, atol=1e-4)
+    pads = bool(((ki < 0) == (ks <= fs.NEG_INF / 2)).all())
+    if own is None:
+        bad, differ, _ = _check_final_at_k(ks, ki, ps, pi, rtol=tie_rtol)
+        ids_text = f"rows with other ids {differ} (outside ties {bad})"
+    else:
+        _, differ, _ = _check_final_at_k(ks, ki, ps, pi)
+        own_r, rank_r, bad = _own_final_scores(ks, ki, ps, *own)
+        ids_text = (f"rows with other ids {differ}; of the width: max |score - exact score of its id| {own_r:.3f}, "
+                    f"max |score - plain score at its rank| {rank_r:.3f}; bad rows {bad}")
+    del ks, ki, ps, pi
+    codes, mask8 = rargs[2], rargs[4]
+    cand, valid = fs._candidates(top_s, gids, rkw["tile_n"])
+    b = _rescore_bound(cand, valid, mask8, codes, q.shape[0], q.shape[1], k, rkw["metric"])
+    load = fs._load_bytes(codes.shape[1] * codes.element_size(), codes.data_ptr())
+    k_ms = time_ms(lambda: fs._rescore_kernel(*rargs, top_s, gids, **rkw))
+    p_ms = time_ms(lambda: fs._rescore_plain(*rargs, top_s, gids, **rkw))
+    gathered = codes[cand]
+    if rkw["int4"]:
+        lo, hi = fs.unpack_nibbles(gathered)
+        gathered = torch.stack([lo, hi], dim=-1).reshape(cand.shape[0], cand.shape[1], -1)[:, :, : q.shape[1]]
+    gathered = gathered.float()
+    with _tf32(False):
+        lib_ms = time_ms(lambda: torch.bmm(gathered, q[:, :, None]))
+    del gathered, cand, valid
+    full_ms = time_ms(lambda: fs.flat_scan_topk(*args, **kw))
+    peak, above = _peak_mib(lambda: fs.flat_scan_topk(*args, **kw))
+    with _rescore_twin():
+        twin_ms = time_ms(lambda: fs.flat_scan_topk(*args, **kw))
+        twin_peak, twin_above = _peak_mib(lambda: fs.flat_scan_topk(*args, **kw))
+    log(f"rescore {label} Q={q.shape[0]} k={k} C={k * rkw['tile_n'] // 128} ({load}-byte row loads): max|dscore| "
+        f"{err:.3g} within 1e-4 {close}; {ids_text}; rescore {k_ms:.3f} ms vs plain {p_ms:.3f} ms; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['distinct_rows']} distinct rows of {b['candidate_rows']} "
+        f"scored, {b['bytes']:.4g} B at 3.35 TB/s; {b['flop']:.4g} FLOP at 67 TFLOP/s {b['ops_ms']:.4f} ms; "
+        f"one read per (query, candidate) {b['per_candidate_bound_ms']:.3f} ms), roofline {b['bound_ms'] / k_ms:.1%}; "
+        f"library {lib_ms:.3f} ms (torch.bmm of the gathered fp32 rows, TF32 off, product only); full scan "
+        f"{full_ms:.3f} ms vs {twin_ms:.3f} ms with the plain stage two; peak memory of one scan {peak:.1f} MiB "
+        f"({above:.1f} above before) vs {twin_peak:.1f} MiB ({twin_above:.1f})")
+    if not ((close or own is not None) and pads and bad == 0):
+        raise AssertionError(f"stage-two kernel differs from its plain version at the {label}")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=lib_ms, roofline=b["bound_ms"] / k_ms, load_bytes=load,
+                per_candidate_bound_ms=b["per_candidate_bound_ms"], distinct_rows=b["distinct_rows"],
+                candidate_rows=b["candidate_rows"], full_ms=full_ms, full_twin_ms=twin_ms, peak_mib=peak,
+                peak_above_mib=above, twin_peak_mib=twin_peak, twin_peak_above_mib=twin_above)
 
 
 def _pad4(d: int) -> int:
@@ -787,6 +930,7 @@ def phase_kernel_vs_plain() -> dict:
             s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
             swaps = float((ti_k != ti_p).float().mean())
             merge = _merge_case(ts_k, ti_k, K, f"flat shape {ctype} {metric}")
+            rescore = _rescore_case(args, kw, ts_k, ti_k, f"flat shape {ctype} {metric}")
             ks, ki = fs.flat_scan_topk(*args, **kw)
             ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
             bad, differ, final_err = _check_final(ks, ki, ps, pi)
@@ -810,7 +954,7 @@ def phase_kernel_vs_plain() -> dict:
                 main_case = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms,
                                  bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                                  library_ms=case_lib_ms, roofline=bound["bound_ms"] / k_ms, **path,
-                                 merge=merge)
+                                 merge=merge, rescore=rescore)
             del codes, norms
     return main_case
 
@@ -1021,6 +1165,12 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
                    f"repeated ids)")
     del ts_p, ti_p, moved
     merge = _merge_case(ts_k, ti_k, K_BUILD, f"{label} {metric}")
+    # the queries are code rows, so an L2 score cancels to ~0 at each row's
+    # own match: stage two is held there by each id's own fp64 score, within
+    # the width of |q|^2 + max |x|^2 (the MIPS rule), not by 1e-4 of ~0
+    width = own_width if own_width is not None else TIE_RTOL * (norms[: q.shape[0]] + norms.max())
+    rescore = _rescore_case(args, kw, ts_k, ti_k, f"{label} {metric}",
+                            own=(q, x, norms, width) if metric == "L2" else None)
     del ts_k, ti_k
     ks, ki = fs.flat_scan_topk(*args, **kw)
     ps, pi = fs.flat_scan_topk_plain(*args, **kw)
@@ -1052,7 +1202,7 @@ def _k1_at_build_shape(x, mask, q, norms, metric: str, label: str, bound: dict, 
         raise AssertionError(f"kernel disagrees with plain version at the {label}: {metric}")
     return dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, full_ms=kf_ms, full_plain_ms=pf_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
-                roofline=bound["bound_ms"] / k_ms, **path, **unpadded, merge=merge)
+                roofline=bound["bound_ms"] / k_ms, **path, **unpadded, merge=merge, rescore=rescore)
 
 
 def phase_kernel_build_shape() -> dict:
@@ -1987,6 +2137,7 @@ def _k1_at_writing_shape(engine, alive: np.ndarray, fmask: np.ndarray, queries: 
         s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
         swaps = float((ti_k != ti_p).float().mean())
         merge = _merge_case(ts_k, ti_k, K, f"live writing shape, {label}")
+        rescore = _rescore_case(args, kw, ts_k, ti_k, f"live writing shape, {label}")
         ks, ki = fs.flat_scan_topk(*args, **kw)
         ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
         bad, differ, final_err = _check_final(ks, ki, ps, pi)
@@ -2000,7 +2151,7 @@ def _k1_at_writing_shape(engine, alive: np.ndarray, fmask: np.ndarray, queries: 
             pf_ms = time_ms(lambda: fs.flat_scan_topk_plain(*args, **kw))
             out = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, full_ms=kf_ms, full_plain_ms=pf_ms,
                        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
-                       roofline=bound["bound_ms"] / k_ms, merge=merge)
+                       roofline=bound["bound_ms"] / k_ms, merge=merge, rescore=rescore)
             times = (f"; stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms; full scan {kf_ms:.3f} ms vs plain "
                      f"{pf_ms:.3f} ms; " + _bound_text(bound, k_ms, lib_ms))
         else:
@@ -3466,6 +3617,7 @@ def phase_kernel_new_shapes() -> dict:
     s1_err = float((ts_k - ts_p).abs().max())  # integer keys: 0 unless a key is wrong
     del ts_p
     merge = _merge_case(ts_k, ti_k, K, "hamming shape (integer keys)")
+    rescore = _rescore_case(args, kw, ts_k, ti_k, "hamming shape (integer scores)", tie_rtol=0.0)
     del ts_k, ti_k
     ks, ki = fs.flat_scan_topk(*args, **kw)
     ps, pi = fs.flat_scan_topk_plain(*args, **kw)
@@ -3490,7 +3642,7 @@ def phase_kernel_new_shapes() -> dict:
         raise AssertionError("kernel disagrees with plain version at the hamming shape")
     out["hamming_flat_shape"] = dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound["bound_ms"],
                                      bound_by=bound["bound_by"], library_ms=lib_ms, roofline=bound["bound_ms"] / k_ms,
-                                     three_pass_ms=three_ms, **path, merge=merge)
+                                     three_pass_ms=three_ms, **path, merge=merge, rescore=rescore)
     del x, q, mask, norms, args
     torch.cuda.empty_cache()
     out["fp16_glove_flat_shape"] = _k1_fp16_glove_shape(g)
@@ -3524,6 +3676,7 @@ def _k1_fp16_glove_shape(g: torch.Generator) -> dict:
     swaps = float((ti_k != ti_p).float().mean())
     del ts_p, ti_p
     merge = _merge_case(ts_k, ti_k, K, "fp16 GloVe-100 shape")
+    rescore = _rescore_case(args, kw, ts_k, ti_k, "fp16 GloVe-100 shape")
     del ts_k, ti_k
     ks, ki = fs.flat_scan_topk(*args, **kw)
     ps, pi = fs.flat_scan_topk_plain(*args, **{**kw, "topk": K + 1})
@@ -3541,7 +3694,7 @@ def _k1_fp16_glove_shape(g: torch.Generator) -> dict:
         raise AssertionError("kernel disagrees with plain version at the fp16 GloVe-100 shape")
     del codes, norms, mask, q, args
     return dict(max_abs_err=s1_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                library_ms=None, roofline=bound["bound_ms"] / k_ms, **path, merge=merge)
+                library_ms=None, roofline=bound["bound_ms"] / k_ms, **path, merge=merge, rescore=rescore)
 
 
 def phase_mips(workdir: Path, dev: torch.device) -> int:
@@ -4029,8 +4182,9 @@ def _lap_printer(label: str):
 
 
 def run_group(phases: tuple, workdir: Path) -> dict:
-    """One group's phases, one after another in this process: K1's and the
-    merge kernel's launch counts by path and the K1 cases they measured."""
+    """One group's phases, one after another in this process: K1's, the
+    merge kernel's and the stage-two kernel's launch counts by path and the
+    K1 cases they measured."""
     lap = _lap_printer("the worker's start")
     dev = torch.device("cuda")
     launches, cases = {}, {}
@@ -4105,7 +4259,8 @@ def run_group(phases: tuple, workdir: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         lap("codes")
-    return dict(launches=launches, merge_launches=dict(MERGE_LAUNCHES), cases=cases)
+    return dict(launches=launches, merge_launches=dict(MERGE_LAUNCHES), rescore_launches=dict(RESCORE_LAUNCHES),
+                cases=cases)
 
 
 def _die_with_parent() -> None:
@@ -4130,11 +4285,11 @@ def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
     GROUP_DEADLINE_S after t_run. Returns the workers' results merged."""
     groups = [g for g in (tuple(p for p in grp if p in phases) for grp in GROUPS) if g]
     if not groups:
-        return dict(launches={}, merge_launches={}, cases={})
+        return dict(launches={}, merge_launches={}, rescore_launches={}, cases={})
     threads = str(max(1, len(os.sched_getaffinity(0)) // len(groups)))
     env = dict(os.environ, **{PARENT_ENV: str(os.getpid()), "OMP_NUM_THREADS": threads,
                               "OPENBLAS_NUM_THREADS": threads, "MKL_NUM_THREADS": threads})
-    procs, printed, merged = [], set(), dict(launches={}, merge_launches={}, cases={})
+    procs, printed, merged = [], set(), dict(launches={}, merge_launches={}, rescore_launches={}, cases={})
 
     def show(i: int, status: str) -> None:
         printed.add(i)
@@ -4162,6 +4317,7 @@ def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
                 res = json.loads((workdir / f"group{i}.json").read_text())
                 merged["launches"].update(res["launches"])
                 merged["merge_launches"].update(res["merge_launches"])
+                merged["rescore_launches"].update(res["rescore_launches"])
                 merged["cases"].update(res["cases"])
             if len(printed) < len(procs) and time.perf_counter() - t_run > GROUP_DEADLINE_S:
                 raise SystemExit(f"chip_smoke: workers still running {GROUP_DEADLINE_S} s after the start")
@@ -4179,7 +4335,7 @@ def run_groups(phases: tuple, workdir: Path, t_run: float) -> dict:
                                                "live", "cohere_build", "sparse", "fusion", "tools_flat",
                                                "mesh_flat", "mesh_hnsw_build", "compact_build", "mips_build",
                                                "codes_flat", "hamming_flat"))}
-    for key in ("launches", "merge_launches"):
+    for key in ("launches", "merge_launches", "rescore_launches"):
         merged[key] = dict(sorted(merged[key].items(), key=lambda kv: order.get(kv[0], len(order))))
     return merged
 
@@ -4229,6 +4385,9 @@ def main() -> None:
     if merged["merge_launches"] != launches:
         raise SystemExit(f"chip_smoke: the merge kernel's launches by path {merged['merge_launches']} are not "
                          f"K1's {launches}")
+    if merged["rescore_launches"] != launches:
+        raise SystemExit(f"chip_smoke: the stage-two kernel's launches by path {merged['rescore_launches']} are not "
+                         f"K1's {launches}")
     log(smi)
     if phases != PHASES:
         log(f"partial run ({','.join(phases)}): no result line")
@@ -4236,14 +4395,18 @@ def main() -> None:
     k1_cases = {"hnsw_build_shape": build_case, "cohere_build_shape": cohere_case,
                 "cohere_ip_build_shape": cohere_ip_case, "live_writing_shape": cases.get("live_writing_shape"),
                 "compact_rebuild_shape": cases.get("compact_rebuild_shape"), **new_cases}
-    # the merge's cases ride in K1's, one per stage-one output they share
+    # the merge's and stage two's cases ride in K1's, one per stage-one output they share
     merge_cases = {"flat_shape": case.pop("merge")}
+    rescore_cases = {"flat_shape": case.pop("rescore")}
     for shape, c in k1_cases.items():
         if shape == "hnsw_build_shape":
             merge_cases.update({f"hnsw_build_shape_{m}": c[m].pop("merge") for m in c})
+            rescore_cases.update({f"hnsw_build_shape_{m}": c[m].pop("rescore") for m in c})
         else:
             merge_cases[shape] = c.pop("merge")
+            rescore_cases[shape] = c.pop("rescore")
     head = merge_cases["hnsw_build_shape_L2"]
+    two = rescore_cases["hnsw_build_shape_L2"]
     print(json.dumps({"kernels": [{
         "name": "flat_scan_topk (stage one: fused scan + group-max top-k)",
         "route": "cuda",
@@ -4274,6 +4437,21 @@ def main() -> None:
         "library_ms": head["library_ms"],
         "roofline": head["roofline"],
         **merge_cases,
+    }, {
+        "name": "flat_scan_topk (stage two: candidate gather, exact fp32 rescore, final top-k; HNSW build shape, L2)",
+        "route": "cuda",
+        "source": "zvec_tpu_torch/csrc/flat_rescore.cu",
+        "replaces": "zvec_tpu/ops/flat_pallas.py:259",
+        "launches": sum(merged["rescore_launches"].values()),
+        "launches_by_path": merged["rescore_launches"],
+        "max_abs_err": two["max_abs_err"],
+        "ms": two["ms"],
+        "plain_ms": two["plain_ms"],
+        "bound_ms": two["bound_ms"],
+        "bound_by": two["bound_by"],
+        "library_ms": two["library_ms"],
+        "roofline": two["roofline"],
+        **rescore_cases,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

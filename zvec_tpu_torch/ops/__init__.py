@@ -2,9 +2,10 @@
 
 `distance`, `topk`, `hnsw` (the HNSW beam and build steps, the blocked top-2
 assignment) and `kmeans` are the torch forms of the JAX package's XLA
-programs; `flat_scan` holds the fused
-group-max scan kernel (`csrc/flat_scan.cu`) that replaces the Pallas kernel
-of `zvec_tpu/ops/flat_pallas.py`.
+programs; `flat_scan` holds the three kernels that replace
+`zvec_tpu/ops/flat_pallas.py::flat_scan_topk` (the group-max scan
+`csrc/flat_scan.cu`, the merge `csrc/flat_merge.cu` and stage two
+`csrc/flat_rescore.cu`).
 """
 
 from .distance import (

@@ -1,16 +1,16 @@
 """Fused flat scan: distance tile + mask + group-max top-k, then exact rescore.
 
 Port of `zvec_tpu/ops/flat_pallas.py::flat_scan_topk` (the Pallas kernel
-`_kernel` and what the function does after it). Two hand-written CUDA
+`_kernel` and what the function does after it). Three hand-written CUDA
 kernels run on the card, each beside its plain PyTorch version, which the
 CPU runs: stage one, `csrc/flat_scan.cu` / `_stage1_plain`, keeps per tile
 of TILE_N code rows, per query, the top-k of the (Q, 128) group-max of a
 rank-equivalent key; the global merge, `csrc/flat_merge.cu` /
 `_merge_plain` (`flat_pallas.py:255-258`), takes a query's top-k of those
-tile winners, bit for bit the same. The rest stays plain PyTorch, as it was
-plain XLA in JAX: expand the winner groups to topk*GROUP candidate rows,
-gather those rows and rescore them exactly in float32 under the real
-metric, take the final top-k.
+tile winners, bit for bit the same; stage two, `csrc/flat_rescore.cu` /
+`_rescore_plain` (`flat_pallas.py:259-301`), expands the winner groups to
+topk*GROUP candidate rows, rescores them exactly in float32 under the real
+metric and takes the final top-k.
 
 Exactness (flat_pallas.py:27-32): every element of the true top-k is the
 witness of its own group's max, so the k groups with the largest maxima cover
@@ -31,6 +31,13 @@ The merge reads the keys stage one sorted: the k-th largest of a query's
 tile maxima bounds its k-th largest key from below, so only each tile's
 prefix above that bound is read (see the note at the top of
 `csrc/flat_merge.cu`).
+
+Stage two is bound by the bytes of the candidate rows: the kernel reads each
+(query, candidate) row once in loads of the widest size its stride and
+address allow (`_load_bytes`), keeps the scores on chip and picks the top-k
+in shared memory, where the plain version writes a (Q, C, D) fp32 copy of
+every candidate and sorts all C scores (see the note at the top of
+`csrc/flat_rescore.cu`).
 
 The kernels are built at first use from `csrc/*.cu` with nvcc into
 `_build/` (a plain C interface loaded with ctypes), keyed by a hash of the
@@ -59,6 +66,7 @@ __all__ = [
     "flat_scan_topk_plain",
     "flat_scan_stage1",
     "flat_scan_merge",
+    "flat_scan_rescore",
     "copy_bytes",
     "pick_tile",
     "build_kernels",
@@ -67,6 +75,7 @@ __all__ = [
 _LANES = 128  # group-max width
 _MAX_CAND = 1024  # cap on topk * GROUP rescore candidates per query
 _PLAIN_CHUNK = 1 << 26  # (Q, rows) key elements the plain stage one holds at once
+_RESCORE_MAX_D = 32768  # query floats stage two keeps in shared memory
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -93,6 +102,15 @@ def copy_bytes(row_bytes: int, data_ptr: int) -> int:
     widest that divides both the row stride and the codes' address; 1 (byte
     loads) where the stride is not a multiple of 4 bytes."""
     for width in (16, 8, 4):
+        if row_bytes % width == 0 and data_ptr % width == 0:
+            return width
+    return 1
+
+
+def _load_bytes(row_bytes: int, data_ptr: int) -> int:
+    """Bytes of one code-row load of stage two: 16, 8, 4, 2 or 1, the widest
+    that divides both the row stride and the codes' address."""
+    for width in (16, 8, 4, 2):
         if row_bytes % width == 0 and data_ptr % width == 0:
             return width
     return 1
@@ -145,6 +163,12 @@ def _library():
                 p, p, p, p, ctypes.c_longlong, i, i, p,  # tile_s tile_i out_s out_i n_tiles topk nq stream
             ]
             lib.zvec_flat_merge.restype = ctypes.c_int
+            lib.zvec_flat_rescore.argtypes = [
+                p, p, p, i, i, p, p, p, p, p, p,  # q qside codes ctype metric norms mask top_s gids out_s out_i
+                i, i, i, ctypes.c_longlong, i, i,  # nq d ld n tile_n topk
+                i, ctypes.c_float, ctypes.c_float, i, p,  # dequant scale bias load stream
+            ]
+            lib.zvec_flat_rescore.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -359,34 +383,33 @@ def flat_scan_merge(tile_s, tile_i, *, topk):
 flat_scan_merge.launches = 0  # merge kernel launches (not plain runs)
 
 
-def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain, exact_tf32=False):
-    q, norms, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim, exact_tf32)
-    tile_s, tile_i = _stage1(args, kw, plain)
-    q_kern, qside, _, codes, _, mask8 = args
-    metric, tile_n = kw["metric"], kw["tile_n"]
-    nq, d = q.shape
+def _candidates(top_s, gids, tile_n):
+    """The merge's winner groups as candidate rows: (cand (Q, C) int64, valid
+    (Q, C)), C = topk * GROUP, position p = r * GROUP + j of group r. Group g
+    of tile t covers rows t*TILE + (g % 128) + 128*j, j < GROUP; an invalid
+    group (id -1 or key NEG_INF) stands at group 0's rows, not valid."""
+    nq, topk = gids.shape
     group = tile_n // _LANES
-
-    # global merge over the per-tile winner groups; keys are rank-equivalent
-    # per query, so this picks the real winner groups
-    top_s, gids = _merge(tile_s, tile_i, topk, plain)
     valid_g = (gids >= 0) & (top_s > NEG_INF / 2)
-
-    # group g of tile t covers rows t*TILE + (g % 128) + 128*j, j < GROUP
     safe_g = torch.where(valid_g, gids, torch.zeros_like(gids))
-    offs = torch.arange(group, device=q.device)[None, None, :] * _LANES
+    offs = torch.arange(group, device=gids.device)[None, None, :] * _LANES
     cand = (safe_g // _LANES)[:, :, None] * tile_n + (safe_g % _LANES)[:, :, None] + offs
-    cand = cand.reshape(nq, topk * group)  # (Q, C) row ids
-    cand_valid = valid_g.repeat_interleave(group, dim=1)
+    return cand.reshape(nq, topk * group), valid_g.repeat_interleave(group, dim=1)
 
-    # gather + exact float32 rescore of the candidate rows (real metric)
+
+def _rescore_plain(q, qside, codes, norms, mask8, top_s, gids, *, metric, topk, tile_n, scale,
+                   bias, dequant, int4, d):
+    """Stage two in plain PyTorch: gather the candidate rows, rescore them
+    exactly in float32 under the real metric, take the final top-k."""
+    nq = q.shape[0]
+    cand, cand_valid = _candidates(top_s, gids, tile_n)
     cand_codes = codes[cand]  # (Q, C, D) or (Q, C, Dp) packed
-    if kw["int4"]:
+    if int4:
         lo, hi = unpack_nibbles(cand_codes)
         cand_codes = torch.stack([lo, hi], dim=-1).reshape(nq, cand.shape[1], -1)[:, :, :d]
     cand_codes = cand_codes.float()
     if dequant is not None:
-        cand_codes = cand_codes * kw["scale"] + kw["bias"]
+        cand_codes = cand_codes * scale + bias
     cand_norms = norms[cand]
     dots = torch.bmm(cand_codes, q[:, :, None])[:, :, 0]  # (Q, C)
     if metric == MetricType.IP:
@@ -406,6 +429,104 @@ def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain, exact_t
     return out_s, out_i
 
 
+def _rescore_kernel(q, qside, codes, norms, mask8, top_s, gids, *, metric, topk, tile_n, scale,
+                    bias, dequant, int4, d):
+    """Launch `csrc/flat_rescore.cu` on CUDA tensors; raises on anything the
+    kernel does not take or on a failed launch."""
+    dev = codes.device
+    tensors = (q, qside, codes, norms, mask8, top_s, gids)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("flat rescore kernel: every input must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flat rescore kernel: inputs must be contiguous")
+    if codes.dtype not in _CODE_TYPES or (int4 and codes.dtype != torch.int8):
+        raise ValueError(f"flat rescore kernel: unsupported code dtype {codes.dtype}")
+    if (q.dtype, qside.dtype, norms.dtype, mask8.dtype, top_s.dtype, gids.dtype) != (
+        torch.float32, torch.float32, torch.float32, torch.int8, torch.float32, torch.int64
+    ):
+        raise ValueError("flat rescore kernel: q/qside/norms/top_s f32, mask int8 and gids int64")
+    if codes.dim() != 2 or q.dim() != 2:
+        raise ValueError("flat rescore kernel: q and codes must be 2-d")
+    n, ld = codes.shape
+    nq = q.shape[0]
+    if (q.shape[1] != d or ld != (-(-d // 2) if int4 else d) or qside.shape != (nq,)
+            or norms.shape != (n,) or mask8.shape != (n,) or top_s.shape != (nq, topk)
+            or gids.shape != (nq, topk)):
+        raise ValueError("flat rescore kernel: shapes disagree")
+    if (not 1 <= topk <= _LANES or tile_n <= 0 or tile_n % _LANES or n % tile_n
+            or (tile_n // _LANES) * topk > _MAX_CAND or d > _RESCORE_MAX_D):
+        raise ValueError(f"flat rescore kernel: topk {topk}, tile_n {tile_n}, N {n}, D {d} not taken")
+    out_s = torch.empty((nq, topk), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, topk), dtype=torch.int64, device=dev)
+    lib = _library()
+    ctype = 3 if int4 else _CODE_TYPES[codes.dtype]
+    load = _load_bytes(ld * codes.element_size(), codes.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.zvec_flat_rescore(
+            q.data_ptr(), qside.data_ptr(), codes.data_ptr(), ctype, _METRICS[metric],
+            norms.data_ptr(), mask8.data_ptr(), top_s.data_ptr(), gids.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), nq, d, ld, n, tile_n, topk,
+            int(dequant is not None), scale, bias, load, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flat rescore kernel launch failed: cudaError {rc} "
+                           f"(load {load} bytes, D {d}, topk {topk}, tile_n {tile_n})")
+    flat_scan_rescore.launches += 1
+    return out_s, out_i
+
+
+def _rescore(*args, plain, **kw):
+    if plain or args[2].device.type == "cpu":
+        return _rescore_plain(*args, **kw)
+    return _rescore_kernel(*args, **kw)
+
+
+def _rescore_inputs(q, norms, args, kw, dequant):
+    """Stage two's arguments from `_prepare`'s: (q, qside, codes, norms, mask8)
+    and the keywords beside the merge's (top_s, gids)."""
+    _, qside, _, codes, _, mask8 = args
+    rkw = dict(metric=kw["metric"], topk=kw["topk"], tile_n=kw["tile_n"], scale=kw["scale"],
+               bias=kw["bias"], dequant=dequant, int4=kw["int4"], d=q.shape[1])
+    return (q, qside, codes, norms, mask8), rkw
+
+
+def flat_scan_rescore(q, codes, norms, mask, top_s, gids, *, metric, topk, dequant=None,
+                      int4_dim=None):
+    """Stage two alone, after the merge: (sims (Q, topk) desc f32, int64 row
+    ids, -1 pad).
+
+    q, codes, norms, mask, metric, topk, dequant and int4_dim as for
+    `flat_scan_topk` (norms the real ||x||^2 for L2, ||x|| for COSINE); top_s
+    (Q, topk) f32 and gids (Q, topk) int64 the merge's winner groups. Group r
+    of a query is valid when gids >= 0 and top_s > NEG_INF / 2 and stands for
+    the GROUP = TILE_N / 128 rows (g // 128) * TILE_N + g % 128 + 128 j at
+    candidate positions r * GROUP + j. Each candidate is scored in float32:
+    the codes widened (int4 unpacked and cut to D), dequantized per element
+    as c * scale + bias, dotted with q, then IP dot, L2 -(|q|^2 + norm - 2
+    dot), COSINE dot / (|q| norm) (1.0 where that product is 0); an invalid
+    group or a masked row scores NEG_INF. The top-k by score, equal scores
+    by the lower position (-0.0 and +0.0 one key); ids -1 where the score is
+    NEG_INF. The kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    q, norms, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim)
+    rargs, rkw = _rescore_inputs(q, norms, args, kw, dequant)
+    return _rescore(*rargs, top_s.float().contiguous(), gids.long().contiguous(), plain=False, **rkw)
+
+
+flat_scan_rescore.launches = 0  # stage-two kernel launches (not plain runs)
+
+
+def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain, exact_tf32=False):
+    q, norms, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim, exact_tf32)
+    tile_s, tile_i = _stage1(args, kw, plain)
+    # global merge over the per-tile winner groups; keys are rank-equivalent
+    # per query, so this picks the real winner groups
+    top_s, gids = _merge(tile_s, tile_i, topk, plain)
+    rargs, rkw = _rescore_inputs(q, norms, args, kw, dequant)
+    return _rescore(*rargs, top_s, gids, plain=plain, **rkw)
+
+
 def flat_scan_topk(q, codes, norms, mask, *, metric, topk, dequant=None, int4_dim=None,
                    exact_tf32=False):
     """Exact fused scan. Returns (sims (Q, topk) desc f32, int64 row ids, -1 pad).
@@ -418,8 +539,8 @@ def flat_scan_topk(q, codes, norms, mask, *, metric, topk, dequant=None, int4_di
     runs one TF32 product, exact there; it raises unless the codes are fp32,
     the metric L2 and every query entry in {-1, 0, +1}.
 
-    CUDA tensors run stage one and the merge in their CUDA kernels, or raise;
-    CPU tensors run the plain versions."""
+    CUDA tensors run stage one, the merge and stage two in their CUDA
+    kernels, or raise; CPU tensors run the plain versions."""
     return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=False,
                  exact_tf32=exact_tf32)
 
@@ -429,6 +550,6 @@ flat_scan_topk.launches = 0  # stage-one kernel launches (not plain runs)
 
 def flat_scan_topk_plain(q, codes, norms, mask, *, metric, topk, dequant=None,
                          int4_dim=None, exact_tf32=False):
-    """`flat_scan_topk` with stage one and the merge in plain PyTorch on any device."""
+    """`flat_scan_topk` with stage one, the merge and stage two in plain PyTorch on any device."""
     return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=True,
                  exact_tf32=exact_tf32)
