@@ -310,8 +310,8 @@ class FlatEngine(VectorIndexEngine):
         if handle[0] == "empty":
             return handle[1], handle[2]
         _, st, sims, idx, nq, topk, use_refiner, orig_queries = handle
-        sims = sims[:nq].cpu().numpy()
-        idx = idx[:nq].cpu().numpy().astype(np.int64)
+        sims, idx = self._fetch(sims[:nq], idx[:nq])
+        idx = idx.astype(np.int64)
         oob = idx >= st.n
         if oob.any():  # padded rows can only surface when fully unmasked
             idx = np.where(oob, -1, idx)

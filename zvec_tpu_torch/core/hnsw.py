@@ -853,13 +853,12 @@ class HnswEngine(VectorIndexEngine):
                 dev_out = exact_scan(full_mask())
 
             def collect():
-                return dev_out[0].cpu().numpy(), dev_out[1].cpu().numpy()
+                return self._fetch(dev_out[0], dev_out[1])
         elif sharded:
             dev_out = self._search_sharded(qpad, k, mask, ef, param)
 
             def collect():
-                sims = dev_out[0][:nq].cpu().numpy()
-                idx = dev_out[1][:nq].cpu().numpy()
+                sims, idx = self._fetch(dev_out[0][:nq], dev_out[1][:nq])
                 if mask is not None:
                     # the single-device path's filtered-beam safety net
                     def rescan():
@@ -898,8 +897,7 @@ class HnswEngine(VectorIndexEngine):
             )
 
             def collect():
-                sims = dev_out[0][:nq].cpu().numpy()
-                idx = dev_out[1][:nq].cpu().numpy()
+                sims, idx = self._fetch(dev_out[0][:nq], dev_out[1][:nq])
                 if mask is not None:
                     # filtered-beam safety net: the ef-capped working set can
                     # strand the beam with too few filtered hits (the

@@ -20,6 +20,7 @@ import numpy as np
 
 from ..model.param.param import QueryParam, VectorIndexParam
 from ..typing.enum import IndexType, MetricType, QuantizeType
+from ..utils.profiler import span
 
 __all__ = [
     "EngineStats",
@@ -108,6 +109,9 @@ class VectorIndexEngine:
     # falling back to defaults (reference: INCOMPATIBLE_FUNCTION_ERROR_MSG,
     # `python/tests/detail/test_collection_dql.py:990-1021`).
     query_param_class: type = QueryParam
+    # the detail of this engine's spans in a query's stage tree: its segment,
+    # `seg_<id>` (set by `Segment.search_async`)
+    trace_detail: Optional[str] = None
 
     def __init__(
         self,
@@ -185,6 +189,12 @@ class VectorIndexEngine:
     def _search_finalize(self, handle) -> Tuple[np.ndarray, np.ndarray]:
         raise NotImplementedError
 
+    def _fetch(self, *tensors) -> Tuple[np.ndarray, ...]:
+        """The device tensors as host arrays: the host blocks on the card
+        until they are written, then copies them (the span `engine.wait`)."""
+        with span("engine.wait", self.trace_detail):
+            return tuple(t.cpu().numpy() for t in tensors)
+
     def _normalize_query_args(self, queries, mask):
         if getattr(self, "_hamming", False):
             # packed binary queries: keep the uint words intact (a float32
@@ -255,7 +265,8 @@ class VectorIndexEngine:
             return lambda: out
 
         def finalize():
-            out = self._search_finalize(handle)
+            with span("engine.finalize", self.trace_detail):
+                out = self._search_finalize(handle)
             self.stats.search_count += 1
             self.stats.queries_served += queries.shape[0]
             self.stats.total_search_secs += time.perf_counter() - t0

@@ -233,6 +233,7 @@ class Segment:
             out = self.search(field, queries, topk, alive_mask, param)
             return lambda: out
         engine = self.engine_for(field)
+        engine.trace_detail = f"seg_{self.meta.segment_id}"
         fin = engine.search_async(queries, topk, alive_mask, param)
 
         def finalize():

@@ -365,7 +365,7 @@ class QueryExecutor(ABC):
                     vecs = np.stack([v for _, v in rows], axis=0)
                 dispatches[field] = impl._query_field_dispatch(
                     field, vecs, head.topk, head.filter, field_param[field],
-                    None, segs,
+                    segs,
                 )
             for field, finalize in dispatches.items():
                 sims, ids = finalize()
