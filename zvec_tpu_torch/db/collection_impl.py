@@ -28,7 +28,7 @@ from ..model.schema import CollectionSchema, CollectionStats
 from ..ops.distance import similarity_to_score
 from ..typing.enum import DataType, MetricType, StatusCode
 from ..typing.status import Status, ZvecError
-from ..utils.profiler import Profiler, span
+from ..utils.profiler import Profiler, gc_paused, span
 from . import codec
 from .delete_store import DeleteStore
 from .forward_store import ForwardStore
@@ -813,7 +813,7 @@ class CollectionImpl:
             )
             metric = vs.index_param.metric_type
             docs: List[Doc] = []
-            with span("docs"):
+            with span("docs"), gc_paused():
                 for sim, doc_id in zip(sims[0], ids[0]):
                     if doc_id < 0:
                         break
@@ -855,15 +855,16 @@ class CollectionImpl:
         def finalize() -> List[Doc]:
             sims, ids = fin()
             docs: List[Doc] = []
-            for sim, doc_id in zip(sims[0], ids[0]):
-                if doc_id < 0:
-                    break
-                score = float(np.asarray(similarity_to_score(sim, metric)))
-                docs.append(
-                    self._materialize_doc(
-                        int(doc_id), score, include_vector, output_fields, segs=segs
+            with gc_paused():
+                for sim, doc_id in zip(sims[0], ids[0]):
+                    if doc_id < 0:
+                        break
+                    score = float(np.asarray(similarity_to_score(sim, metric)))
+                    docs.append(
+                        self._materialize_doc(
+                            int(doc_id), score, include_vector, output_fields, segs=segs
+                        )
                     )
-                )
             return docs
 
         return finalize
@@ -915,8 +916,9 @@ class CollectionImpl:
         include_vector: bool,
         output_fields: Optional[List[str]],
     ) -> List[List[Doc]]:
-        """(Q, k) similarity/doc_id matrices -> ranked Doc lists per query."""
-        with span("docs"):
+        """(Q, k) similarity/doc_id matrices -> ranked Doc lists per query,
+        built with the garbage collector paused (`gc_paused`)."""
+        with span("docs"), gc_paused():
             metric = vs.index_param.metric_type
             scores = np.asarray(similarity_to_score(sims, metric))
             id_score_only = output_fields == [] and not include_vector

@@ -19,6 +19,12 @@ When on, a span
 A full (generation 2) garbage collection that starts while a span is open on
 the thread is a `gc` span of its own, inside the open one.
 
+`gc_paused()` pauses automatic garbage collection while a call builds its
+answer Docs: built between collections, 10,240 Docs a call would be promoted
+to the oldest generation and set off a full collection every few calls.
+`gc_pauses()` counts the builds it wrapped and those that turned the
+collector off.
+
 The query entry points (`CollectionImpl.batch_query`, `query`) open the root
 span `query`, from the argument checks to the last Doc. Inside it, per
 segment, `filter` (the filter's mask), `vector_scan` / `bf_by_keys` (the
@@ -39,7 +45,7 @@ from typing import Any, Dict, List, Optional
 from torch.autograd import _profiler_enabled
 from torch.autograd.profiler import record_function
 
-__all__ = ["Profiler", "span", "span_totals"]
+__all__ = ["Profiler", "gc_paused", "gc_pauses", "span", "span_totals"]
 
 PREFIX = "zvec."
 
@@ -212,6 +218,56 @@ def span(name: str, detail: Optional[str] = None, tree: Optional[Profiler] = Non
     if tree is not None and tree.enabled:
         return _Span(name, detail, tree, root=True)
     return _open(name, detail, _local.tree)
+
+
+_pause_lock = threading.Lock()
+_pause_depth = 0  # builds inside `gc_paused`, on every thread
+_pause_owned = False  # a build of `gc_paused` turned the collector off
+_pause_counts = [0, 0]  # builds, builds that turned the collector off
+
+
+class _GcPause:
+    __slots__ = ()
+
+    def __enter__(self):
+        global _pause_depth, _pause_owned
+        with _pause_lock:  # int updates and gc switches only: no collection starts inside
+            _pause_counts[0] += 1
+            if _pause_depth == 0 and gc.isenabled():
+                gc.disable()
+                _pause_owned = True
+                _pause_counts[1] += 1
+            _pause_depth += 1
+
+    def __exit__(self, *exc):
+        global _pause_depth, _pause_owned
+        with _pause_lock:
+            _pause_depth -= 1
+            if _pause_depth == 0 and _pause_owned:
+                _pause_owned = False
+                gc.enable()
+        return False
+
+
+_GC_PAUSE = _GcPause()
+
+
+def gc_paused():
+    """A context manager that pauses automatic garbage collection while a
+    call builds its answer Docs, which form no cycles. Process-wide and
+    re-entrant: the first build to enter turns the collector off if it is
+    on; the last to leave turns it back on if a build turned it off, also
+    when the build raised. A collector the user disabled stays disabled."""
+    return _GC_PAUSE
+
+
+def gc_pauses() -> Dict[str, int]:
+    """Builds wrapped by `gc_paused` since the process started (`builds`),
+    and those that turned the collector off (`paused`); the rest found it
+    off, by the user or an overlapping build on another thread."""
+    with _pause_lock:
+        builds, paused = _pause_counts
+    return {"builds": builds, "paused": paused}
 
 
 def _on_gc(phase: str, info: dict) -> None:
