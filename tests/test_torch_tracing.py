@@ -120,14 +120,21 @@ def test_self_seconds_add_up(col, mode):
             query(col, flt="tag != 3")
     got = delta(before, P.span_totals())
     assert got["zvec.query"]["count"] == 1
-    assert {"zvec.filter", "zvec.vector_scan", "zvec.engine.finalize", "zvec.engine.wait", "zvec.docs"} <= set(got)
-    children = {"zvec.query": ["zvec.filter", "zvec.vector_scan", "zvec.engine.finalize", "zvec.docs", "zvec.gc"],
+    assert {"zvec.filter", "zvec.mask", "zvec.vector_scan", "zvec.engine.finalize", "zvec.engine.wait",
+            "zvec.docs"} <= set(got)
+    assert got["zvec.mask"]["count"] == 2  # the AND in the dispatch, the engine's padded mask
+    mask_in_scan = got["zvec.vector_scan"]["total_s"] - got["zvec.vector_scan"]["self_s"]
+    children = {"zvec.query": ["zvec.filter", "zvec.mask", "zvec.vector_scan", "zvec.engine.finalize",
+                               "zvec.docs", "zvec.gc"],
                 "zvec.engine.finalize": ["zvec.engine.wait"]}
     for parent, kids in children.items():
         covered = sum(got[k]["total_s"] for k in kids if k in got)
+        if parent == "zvec.query":
+            covered -= mask_in_scan  # the engine's mask span lies inside `vector_scan`
         assert got[parent]["self_s"] + covered == pytest.approx(got[parent]["total_s"], rel=1e-9, abs=1e-12)
         assert got[parent]["self_s"] >= 0
-    for leaf in ("zvec.filter", "zvec.vector_scan", "zvec.engine.wait", "zvec.docs"):
+    assert 0 < mask_in_scan < got["zvec.mask"]["total_s"]
+    for leaf in ("zvec.filter", "zvec.engine.wait", "zvec.docs"):
         assert got[leaf]["self_s"] == pytest.approx(got[leaf]["total_s"], rel=1e-9, abs=1e-12)
 
 

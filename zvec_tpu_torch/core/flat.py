@@ -29,6 +29,7 @@ from ..ops.runtime import bucket_queries as _bucket_queries
 from ..ops.runtime import device, round_up
 from ..ops.topk import blockwise_topk_search
 from ..typing.enum import IndexType, MetricType, QuantizeType
+from ..utils.profiler import count, span
 from .interface import VectorIndexEngine, register_engine
 from .refiner import refine
 
@@ -249,14 +250,17 @@ class FlatEngine(VectorIndexEngine):
         q = np.zeros((nq_pad, queries.shape[1]), dtype=np.float32)
         q[:nq] = queries
 
-        full_mask = np.zeros(st.n_pad, dtype=bool)
-        if mask is not None:
-            m = np.asarray(mask)[: st.n]
-            full_mask[: len(m)] = m
-        else:
-            full_mask[: st.n] = True
-
         k = min(scan_k, st.n)
+        fused = st.mesh is None and self._use_kernel(st, k)
+        with span("mask", self.trace_detail):
+            full_mask = np.zeros(st.n_pad, dtype=bool)
+            if mask is not None:
+                m = np.asarray(mask)[: st.n]
+                full_mask[: len(m)] = m
+            else:
+                full_mask[: st.n] = True
+            dev_mask = self._device_mask(st, full_mask, as_int8=fused)
+        count("rows_scored", st.n_pad)
         if st.mesh is not None:
             from ..parallel.mesh import sharded_flat_search
 
@@ -266,7 +270,7 @@ class FlatEngine(VectorIndexEngine):
                 st.codes,
                 scan_metric,
                 k,
-                mask=self._device_mask(st, full_mask, as_int8=False),
+                mask=dev_mask,
                 x_sq_norms=st.norms,
                 dequant=st.dequant,
                 int4_packed=st.int4_packed,
@@ -274,7 +278,7 @@ class FlatEngine(VectorIndexEngine):
             )
             return ("scan", st, sims, idx, nq, topk, use_refiner, orig_queries)
         q_dev = torch.from_numpy(q).to(st.codes.device)
-        if self._use_kernel(st, k):
+        if fused:
             from ..ops.flat_scan import flat_scan_topk
 
             norms = st.norms
@@ -284,7 +288,7 @@ class FlatEngine(VectorIndexEngine):
                 q_dev,
                 st.codes,
                 norms,
-                self._device_mask(st, full_mask, as_int8=True),
+                dev_mask,
                 metric=scan_metric,
                 topk=k,
                 dequant=st.dequant,
@@ -298,7 +302,7 @@ class FlatEngine(VectorIndexEngine):
                 st.codes,
                 scan_metric,
                 k,
-                mask=self._device_mask(st, full_mask, as_int8=False),
+                mask=dev_mask,
                 x_sq_norms=st.norms,
                 block_size=_BLOCK_SIZE,
                 dequant=st.dequant,

@@ -28,7 +28,7 @@ from ..model.schema import CollectionSchema, CollectionStats
 from ..ops.distance import similarity_to_score
 from ..typing.enum import DataType, MetricType, StatusCode
 from ..typing.status import Status, ZvecError
-from ..utils.profiler import Profiler, gc_paused, span
+from ..utils.profiler import Profiler, count, gc_paused, span
 from . import codec
 from .delete_store import DeleteStore
 from .forward_store import ForwardStore
@@ -713,14 +713,16 @@ class CollectionImpl:
             if filter_str:
                 with span("filter", f"seg_{seg.meta.segment_id}"):
                     fmask = self._filter_mask_for_segment(seg, filter_str)
-                alive = alive & _fit_mask(fmask, n_rows)
+                with span("mask", f"seg_{seg.meta.segment_id}"):
+                    alive = alive & _fit_mask(fmask, n_rows)
+                    n_alive = int(alive.sum())
+                count("rows_passing", n_alive)
                 # brute-force-by-keys: ultra-selective filters bypass the index
                 # and score the surviving rows exactly (`doc_filter.cc:120-122`)
                 if not vs.data_type.is_sparse_vector:
                     from ..utils.config import GlobalConfig
 
                     ratio = GlobalConfig.instance().brute_force_by_keys_ratio
-                    n_alive = int(alive.sum())
                     if n_alive <= max(1, int(ratio * n_rows)):
                         # tiny candidate sets: host BLAS beats a device
                         # dispatch (single selective queries especially)
@@ -746,6 +748,8 @@ class CollectionImpl:
                                     )
                                 )
                         continue
+            else:
+                count("rows_passing", lambda alive=alive: int(alive.sum()))
             with span("vector_scan", f"seg_{seg.meta.segment_id}"):
                 finalizers.append(
                     seg.search_async(field_name, queries, topk, alive, param)

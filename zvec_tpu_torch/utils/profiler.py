@@ -19,6 +19,12 @@ When on, a span
 A full (generation 2) garbage collection that starts while a span is open on
 the thread is a `gc` span of its own, inside the open one.
 
+`count(name, value)` adds to a counter `zvec.<name>` while tracing is on, and
+costs the same one check otherwise; `counter_totals` reads the counters.
+`rows_passing` sums, over a call's segments, the rows that passed the filter
+and the deletes; `rows_scored` the rows the engines scanned on the card,
+padding included.
+
 `gc_paused()` pauses automatic garbage collection while a call builds its
 answer Docs: built between collections, 10,240 Docs a call would be promoted
 to the oldest generation and set off a full collection every few calls.
@@ -31,7 +37,10 @@ segment, `filter` (the filter's mask), `vector_scan` / `bf_by_keys` (the
 engine's dispatch: padding, masks, the host-to-device copies, the launches),
 then `engine.finalize` (the engine's host post-processing, the refine among
 it) around `engine.wait` (the host blocked on the card, then the copy of the
-results), and `docs` (pk resolution and Doc building).
+results), and `docs` (pk resolution and Doc building). `mask` is the row
+mask's work: the AND of the alive and filter masks and its pass count, and
+inside the engine's dispatch the padded mask, its digest, the device-mask
+cache and the copy to the card on a miss.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from typing import Any, Dict, List, Optional
 from torch.autograd import _profiler_enabled
 from torch.autograd.profiler import record_function
 
-__all__ = ["Profiler", "gc_paused", "gc_pauses", "span", "span_totals"]
+__all__ = ["Profiler", "count", "counter_totals", "gc_paused", "gc_pauses", "span", "span_totals"]
 
 PREFIX = "zvec."
 
@@ -126,6 +135,7 @@ class _Thread(threading.local):
 _local = _Thread()
 _lock = threading.Lock()
 _totals: Dict[str, List[float]] = {}  # trace name -> [count, total s, self s]
+_counters: Dict[str, List[int]] = {}  # counter name -> [value]
 
 
 def _add(name: str, total: float, own: float) -> None:
@@ -147,6 +157,31 @@ def span_totals() -> Dict[str, Dict[str, float]]:
         with _lock:
             count, total, own = entry
         out[name] = {"count": count, "total_s": total, "self_s": own}
+    return out
+
+
+def count(name: str, value) -> None:
+    """Add `value` (an int, or a function returning one, called only while
+    tracing is on) to the counter `zvec.<name>`, while tracing is on, as for
+    `span`: a `torch.profiler` records, or a tree is attached to the thread."""
+    if _local.tree is None and not _profiler_enabled():
+        return
+    n = int(value() if callable(value) else value)
+    entry = _counters.get(PREFIX + name)
+    if entry is None:  # allocates: before the lock, as in `_add`
+        entry = _counters.setdefault(PREFIX + name, [0])
+    with _lock:
+        entry[0] += n
+
+
+def counter_totals() -> Dict[str, int]:
+    """A copy of the counters by name (`zvec.<name>`), summed over every
+    `count` made while tracing was on, on every thread, since the process
+    started."""
+    out = {}
+    for name, entry in _counters.copy().items():
+        with _lock:
+            out[name] = entry[0]
     return out
 
 
