@@ -3,7 +3,8 @@ filter's row mask at GIST1M's width, D = 960 (3,840-byte rows), and at D =
 128, held to the benchmark's plain reference (`portbench/reference/exact.py`:
 float32 candidates with TF32 off, ranked in float64), and through the
 port's public API on a collection large enough that the brute-force-by-keys
-demotion takes the fused scan.
+demotion takes the fused scan; `FlatEngine`'s compact scan of the passing
+rows against its masked scan of every row.
 
 Marked `cuda`: the kernels have no CPU mode, so without a card these skip.
 Run them on a GPU machine with
@@ -71,6 +72,49 @@ def test_fused_scan_under_a_one_percent_mask(cuda, d, rule):
     after = (fs.flat_scan_topk.launches, fs.flat_scan_merge.launches, fs.flat_scan_rescore.launches)
     assert all(a == b + 1 for a, b in zip(after, before))  # K1, the merge and stage two, once each
     _check(x, q, mask, idx, -sims)
+
+
+@pytest.mark.parametrize("rule", ["last_percent", "random_percent"])
+def test_engine_compacts_a_one_percent_mask(cuda, monkeypatch, rule):
+    """`FlatEngine` at the filtered cell's shape cut to 100,000 x 960: under
+    a 1% mask it scans only the passing rows (one K1 launch a call, over
+    1,024 rows), with the ids and scores of its masked scan of every row."""
+    from zvec_tpu_torch.core.flat import FlatEngine
+    from zvec_tpu_torch.model.param.param import FlatIndexParam
+    from zvec_tpu_torch.utils.config import GlobalConfig
+
+    n, d, nq = 100_000, 960, 1024
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    queries = rng.standard_normal((nq, d), dtype=np.float32)
+    mask = np.zeros(n, dtype=bool)
+    mask[int(0.99 * n):] = True
+    if rule == "random_percent":
+        mask = rng.permutation(mask)
+
+    def engine():
+        eng = FlatEngine(MetricType.L2, d, FlatIndexParam(MetricType.L2))
+        eng.bind_data(lambda: x, lambda: 0)
+        return eng
+
+    compact = engine()
+    got = []
+    for _ in range(2):  # a miss of the mask cache, then a hit
+        before = fs.flat_scan_topk.launches
+        got.append(compact.search(queries, K, mask, None))
+        assert fs.flat_scan_topk.launches == before + 1
+    (entry,) = compact._mask_cache.values()
+    assert entry.rows.shape == (1024,) and int(entry.dev.sum()) == n // 100
+    monkeypatch.setattr(GlobalConfig.instance(), "brute_force_by_keys_ratio", 0.0)  # the full scan
+    full = engine()
+    want_s, want_i = full.search(queries, K, mask, None)
+    (entry,) = full._mask_cache.values()
+    assert entry.rows is None
+    for got_s, got_i in got:
+        assert np.array_equal(got_i, want_i) and np.array_equal(got_s, want_s)
+    xt, qt = torch.from_numpy(x).to(cuda), torch.from_numpy(queries).to(cuda)
+    pks = torch.from_numpy(got[0][1]).to(cuda)
+    _check(xt, qt, torch.from_numpy(mask).to(cuda), pks, -torch.from_numpy(got[0][0]).to(cuda))
 
 
 def test_public_api_demotes_to_the_fused_scan(cuda, tmp_path):

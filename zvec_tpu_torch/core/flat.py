@@ -3,10 +3,13 @@
 Port of `zvec_tpu/core/flat.py`. Codes are padded and moved to the device
 once per data version; every query batch then runs either the fused CUDA scan
 (`ops/flat_scan.py`, large corpora and small k) or the blockwise torch scan
-(`ops/topk.py`). Under a collection mesh (`init(mesh_devices=N)`) the padded
-rows split into N contiguous shards, one per mesh device, and a batch runs
-that choice on every shard before the per-shard top-k merge
-(`parallel/mesh.py::sharded_flat_search`).
+(`ops/topk.py`). A fused scan under a mask that lets through at most
+`brute_force_by_keys_ratio` of the rows scans only those: their codes are
+gathered into a compact buffer on the card, and the scan's positions map
+back to row ids through the row list. Under a collection mesh
+(`init(mesh_devices=N)`) the padded rows split into N contiguous shards, one
+per mesh device, and a batch runs that choice on every shard before the
+per-shard top-k merge (`parallel/mesh.py::sharded_flat_search`).
 
 Quantization (reference converter/reformer pairs, `src/core/quantizer/`):
 `quantize_type` on the index params stores fp16 or int8/int4 codes on the
@@ -29,6 +32,7 @@ from ..ops.runtime import bucket_queries as _bucket_queries
 from ..ops.runtime import device, round_up
 from ..ops.topk import blockwise_topk_search
 from ..typing.enum import IndexType, MetricType, QuantizeType
+from ..utils.config import GlobalConfig
 from ..utils.profiler import count, span
 from .interface import VectorIndexEngine, register_engine
 from .refiner import refine
@@ -70,6 +74,32 @@ class _State(NamedTuple):
 _EMPTY = _State(None, None, 0, 0, None, False)
 
 
+class _Mask(NamedTuple):
+    """A scan's mask on the device, cached by its contents. With `rows` None
+    the scan reads every row and `dev` is the (n_pad,) mask (one tensor per
+    shard under a mesh). A compact scan reads only the passing rows: `rows`
+    lists them, int32 and ascending, padded with row 0 to n_c (n_pass rounded
+    up to 1024, none where none pass), and `dev` is the (n_c,) int8 mask of
+    the first n_pass."""
+
+    dev: Any
+    rows: Optional[torch.Tensor] = None
+
+
+def _compact_mask(full_mask: np.ndarray, n_pass: int, dev) -> _Mask:
+    n_c = round_up(n_pass, _ROW_ALIGN)
+    rows = np.zeros(n_c, dtype=np.int32)
+    rows[:n_pass] = np.flatnonzero(full_mask)
+    mask = np.zeros(n_c, dtype=np.int8)
+    mask[:n_pass] = 1
+    return _Mask(torch.from_numpy(mask).to(dev), torch.from_numpy(rows).to(dev))
+
+
+def _no_rows(nq: int, topk: int):
+    """The handle of a scan with no row to score: -inf scores, -1 ids."""
+    return ("empty", np.full((nq, topk), -np.inf, dtype=np.float32), np.full((nq, topk), -1, dtype=np.int64))
+
+
 @register_engine(IndexType.FLAT)
 class FlatEngine(VectorIndexEngine):
     query_param_class = FlatQueryParam
@@ -96,25 +126,33 @@ class FlatEngine(VectorIndexEngine):
         # reuse one device buffer instead of re-uploading N bytes per batch
         self._mask_cache: dict = {}
 
-    def _device_mask(self, st: _State, full_mask: np.ndarray, as_int8: bool):
-        """The (n_pad,) mask on the device (one tensor per shard under a
-        mesh), cached by its contents."""
+    def _device_mask(self, st: _State, full_mask: np.ndarray, fused: bool) -> _Mask:
+        """The scan's mask on the device, cached by its contents. A fused scan
+        whose mask lets through at most `brute_force_by_keys_ratio` of the rows
+        (the reference's threshold for scoring by keys, `doc_filter.cc:120-122`)
+        is compacted to them; the pass count and the row list are computed
+        here, on a miss only."""
         digest = hashlib.blake2b(full_mask.tobytes(), digest_size=16).digest()
-        key = (id(st.codes), digest, as_int8)
+        key = (id(st.codes), digest, fused)
         hit = self._mask_cache.get(key)
         if hit is not None:
             return hit
-        host = full_mask.astype(np.int8) if as_int8 else full_mask
-        if st.mesh is not None:
+        if fused:
+            n_pass = int(np.count_nonzero(full_mask))
+            if n_pass <= GlobalConfig.instance().brute_force_by_keys_ratio * st.n:
+                out = _compact_mask(full_mask, n_pass, st.codes.device)
+            else:
+                out = _Mask(torch.from_numpy(full_mask.astype(np.int8)).to(st.codes.device))
+        elif st.mesh is not None:
             from ..parallel.mesh import shard_rows
 
-            dev = shard_rows(host, st.mesh)
+            out = _Mask(shard_rows(full_mask, st.mesh))
         else:
-            dev = torch.from_numpy(host).to(st.codes.device)
+            out = _Mask(torch.from_numpy(full_mask).to(st.codes.device))
         if len(self._mask_cache) >= 8:
             self._mask_cache.clear()
-        self._mask_cache[key] = dev
-        return dev
+        self._mask_cache[key] = out
+        return out
 
     @property
     def _n(self) -> int:  # read by VectorIndexEngine._normalize_query_args
@@ -212,8 +250,7 @@ class FlatEngine(VectorIndexEngine):
         st = self._st  # one consistent snapshot for this query
         nq = queries.shape[0]
         if st.n == 0:
-            sims = np.full((nq, topk), -np.inf, dtype=np.float32)
-            return ("empty", sims, np.full((nq, topk), -1, dtype=np.int64))
+            return _no_rows(nq, topk)
 
         orig_queries = queries
         scan_metric = self.metric
@@ -259,8 +296,13 @@ class FlatEngine(VectorIndexEngine):
                 full_mask[: len(m)] = m
             else:
                 full_mask[: st.n] = True
-            dev_mask = self._device_mask(st, full_mask, as_int8=fused)
-        count("rows_scored", st.n_pad)
+            dev_mask = self._device_mask(st, full_mask, fused)
+        rows = dev_mask.rows
+        if rows is not None:
+            count("scans_compacted", 1)
+        count("rows_scored", st.n_pad if rows is None else rows.shape[0])
+        if rows is not None and rows.shape[0] == 0:
+            return _no_rows(nq, topk)
         if st.mesh is not None:
             from ..parallel.mesh import sharded_flat_search
 
@@ -270,7 +312,7 @@ class FlatEngine(VectorIndexEngine):
                 st.codes,
                 scan_metric,
                 k,
-                mask=dev_mask,
+                mask=dev_mask.dev,
                 x_sq_norms=st.norms,
                 dequant=st.dequant,
                 int4_packed=st.int4_packed,
@@ -281,14 +323,17 @@ class FlatEngine(VectorIndexEngine):
         if fused:
             from ..ops.flat_scan import flat_scan_topk
 
-            norms = st.norms
+            codes, norms = st.codes, st.norms
+            if rows is not None:
+                # the passing rows, in the order the full scan reads them
+                codes, norms = codes.index_select(0, rows), norms.index_select(0, rows)
             if scan_metric == MetricType.COSINE:
-                norms = torch.sqrt(st.norms)  # the scan wants ||x|| for cosine
+                norms = torch.sqrt(norms)  # the scan wants ||x|| for cosine
             sims, idx = flat_scan_topk(
                 q_dev,
-                st.codes,
+                codes,
                 norms,
-                dev_mask,
+                dev_mask.dev,
                 metric=scan_metric,
                 topk=k,
                 dequant=st.dequant,
@@ -296,13 +341,15 @@ class FlatEngine(VectorIndexEngine):
                 # +-1 codes and queries: one TF32 product is exact
                 exact_tf32=self._hamming or self._binary_codes,
             )
+            if rows is not None:  # positions in the compact buffer -> row ids
+                idx = torch.where(idx >= 0, rows[idx.clamp(min=0)].long(), idx)
         else:
             sims, idx = blockwise_topk_search(
                 q_dev,
                 st.codes,
                 scan_metric,
                 k,
-                mask=dev_mask,
+                mask=dev_mask.dev,
                 x_sq_norms=st.norms,
                 block_size=_BLOCK_SIZE,
                 dequant=st.dequant,

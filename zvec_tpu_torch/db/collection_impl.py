@@ -1358,7 +1358,7 @@ class CollectionImpl:
                     torch.from_numpy(qpad).to(st.codes.device),
                     st.codes,
                     st.norms,
-                    de._device_mask(st, dmask, as_int8=False),
+                    de._device_mask(st, dmask, fused=False).dev,
                     *sparse_args,
                     st.dequant,
                     metric=de.metric,

@@ -22,8 +22,10 @@ the thread is a `gc` span of its own, inside the open one.
 `count(name, value)` adds to a counter `zvec.<name>` while tracing is on, and
 costs the same one check otherwise; `counter_totals` reads the counters.
 `rows_passing` sums, over a call's segments, the rows that passed the filter
-and the deletes; `rows_scored` the rows the engines scanned on the card,
-padding included.
+and the deletes; `rows_scored` the rows the engines' scans read on the card,
+padding included (only the passing rows, padded to 1024, where a sparse mask
+compacts a fused flat scan); `scans_compacted` the segment scans that were
+compacted so.
 
 `gc_paused()` pauses automatic garbage collection while a call builds its
 answer Docs: built between collections, 10,240 Docs a call would be promoted
