@@ -140,7 +140,7 @@ def test_sharded_ivf_and_sparse_engines_card_vs_cpu(cuda):
     sp = _engine(SparseHnswEngine, rows, MetricType.IP, 0, HnswIndexParam(MetricType.IP, m=16, ef_construction=100))
     assert sp._smesh is not None and all(t.is_cuda for t in sp._l0)
     qi, qv = sp._prep_query_arrays(rows[:32])
-    mask = sp._device_mask(None)
+    mask = sp.device_mask(None)
     skw = dict(ef=64, topk=10, max_steps=128, vocab=sp._vocab, frontier=4)
     arrs = (sp._doc_idx, sp._doc_val, sp._l0, sp._entries)
     card = tmesh.sharded_sparse_beam(sp._smesh, torch.from_numpy(qi), torch.from_numpy(qv), *arrs, mask, 10_000, **skw)

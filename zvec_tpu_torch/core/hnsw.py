@@ -83,7 +83,7 @@ from ..ops.quantize import (
 from ..ops.runtime import bucket_queries, device, round_up
 from ..ops.topk import blockwise_topk_search
 from ..typing.enum import IndexType, MetricType, QuantizeType
-from .interface import VectorIndexEngine, register_engine, rescan_deficient
+from .interface import VectorIndexEngine, device_row_mask, register_engine, rescan_deficient
 from .refiner import refine
 
 __all__ = ["HnswEngine"]
@@ -297,7 +297,7 @@ class HnswEngine(VectorIndexEngine):
         if n_pad > self._n:
             # the validity mask keeps padding rows out of unfiltered results:
             # a shard's padding rows hold zero codes with finite scores
-            self._dev["valid"] = shard_rows(np.arange(n_pad) < self._n, mesh)
+            self._dev["valid"] = device_row_mask(None, self._n, n_pad, mesh=mesh)
 
     def _build_route(self, codes_host: np.ndarray):
         """The reduced-precision routing tier of an fp32 index: the beam's
@@ -824,20 +824,11 @@ class HnswEngine(VectorIndexEngine):
         qpad[:nq] = queries
         k = min(topk, self._n)
         sharded = self._dev is not None and self._dev.get("sharded")
-        if sharded:
-            n_pad = self._dev["R"] * self._dev["mesh"].shape["corpus"]
-        else:
-            n_pad = self._codes.shape[0]
-            dev = self._codes.device
-            q_dev = _to_dev(qpad, dev)
-
-        def full_mask_host():
-            fm = np.zeros(n_pad, dtype=bool)
-            fm[: self._n] = True if mask is None else mask
-            return fm
+        if not sharded:
+            q_dev = _to_dev(qpad, self._codes.device)
 
         def full_mask():
-            return _to_dev(full_mask_host(), dev)
+            return device_row_mask(mask, self._n, self._codes.shape[0], dev=self._codes.device)
 
         def exact_scan(dmask):
             return blockwise_topk_search(
@@ -848,7 +839,7 @@ class HnswEngine(VectorIndexEngine):
 
         if is_linear or self._n < self.brute_force_threshold:
             if sharded:
-                dev_out = self._sharded_flat(qpad, full_mask_host(), k)
+                dev_out = self._sharded_flat(qpad, mask, k)
             else:
                 dev_out = exact_scan(full_mask())
 
@@ -862,7 +853,7 @@ class HnswEngine(VectorIndexEngine):
                 if mask is not None:
                     # the single-device path's filtered-beam safety net
                     def rescan():
-                        s, i = self._sharded_flat(qpad, full_mask_host(), k)
+                        s, i = self._sharded_flat(qpad, mask, k)
                         return s.cpu().numpy(), i.cpu().numpy()
 
                     sims, idx = rescan_deficient(sims, idx, k, mask, rescan)
@@ -979,11 +970,7 @@ class HnswEngine(VectorIndexEngine):
         ef = param.ef if isinstance(param, HnswQueryParam) else 500
         knobs = self._query_knobs(param)
         dev = self._codes.device
-        dmask = None
-        if mask is not None:
-            fm = np.zeros(self._codes.shape[0], dtype=bool)
-            fm[: self._n] = mask
-            dmask = _to_dev(fm, dev)
+        dmask = None if mask is None else device_row_mask(mask, self._n, self._codes.shape[0], dev=dev)
         qpad = np.zeros((bucket_queries(nq), queries.shape[1]), np.float32)
         qpad[:nq] = queries
         g = self._dev
@@ -1045,11 +1032,7 @@ class HnswEngine(VectorIndexEngine):
         ef = max(ef, k)
         knobs = self._query_knobs(param)
         dev = self._codes.device
-        dmask = None
-        if mask is not None:
-            fm = np.zeros(self._codes.shape[0], dtype=bool)
-            fm[: self._n] = mask
-            dmask = _to_dev(fm, dev)
+        dmask = None if mask is None else device_row_mask(mask, self._n, self._codes.shape[0], dev=dev)
         qpad = np.zeros((bucket_queries(nq), queries.shape[1]), np.float32)
         qpad[:nq] = queries
         q_idx, q_val, doc_idx, doc_val, smask, vocab = sparse_args
@@ -1090,15 +1073,16 @@ class HnswEngine(VectorIndexEngine):
         return col
 
     # ------------- mesh-sharded search -------------
-    def _sharded_flat(self, qpad: np.ndarray, full_mask: np.ndarray, k: int):
-        """Exact scan over every shard, then the merge (the linear and
-        filtered-rescan paths under a mesh)."""
-        from ..parallel.mesh import shard_rows, sharded_flat_search
+    def _sharded_flat(self, qpad: np.ndarray, mask: Optional[np.ndarray], k: int):
+        """Exact scan over every shard under `mask` (None: every row), then
+        the merge (the linear and filtered-rescan paths under a mesh)."""
+        from ..parallel.mesh import sharded_flat_search
 
-        mesh = self._dev["mesh"]
+        mesh, R = self._dev["mesh"], self._dev["R"]
         return sharded_flat_search(
             mesh, torch.from_numpy(qpad), self._codes, self._search_metric, k,
-            mask=shard_rows(full_mask, mesh), x_sq_norms=self._norms,
+            mask=device_row_mask(mask, self._n, R * mesh.shape["corpus"], mesh=mesh),
+            x_sq_norms=self._norms,
             dequant=self._dequant, int4_packed=self._int4_packed,
         )
 
@@ -1107,16 +1091,14 @@ class HnswEngine(VectorIndexEngine):
         the visited set are per shard (R rows); the beam runs to the end for
         every query of the batch (done_frac 1.0), as the JAX engine's
         sharded search does."""
-        from ..parallel.mesh import shard_rows, sharded_hnsw_search
+        from ..parallel.mesh import sharded_hnsw_search
 
         d = self._dev
         mesh, R, shards = d["mesh"], d["R"], d["shards"]
         knobs = self._query_knobs(param)
         dmask = d.get("valid")
         if mask is not None:
-            fm = np.zeros(R * mesh.shape["corpus"], dtype=bool)
-            fm[: self._n] = mask
-            dmask = shard_rows(fm, mesh)
+            dmask = device_row_mask(mask, self._n, R * mesh.shape["corpus"], mesh=mesh)
 
         def per_shard(key):
             return [None if sh is None else sh[key] for sh in shards]

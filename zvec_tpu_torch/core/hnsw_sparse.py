@@ -217,7 +217,7 @@ class SparseHnswEngine(SparseFlatEngine):
         dev = self._doc_idx.device
         m0 = 2 * self.m
         k = min(m0 + 1, n)  # +1: self lands in its own top-k
-        dmask = self._device_mask(None)
+        dmask = self.device_mask(None)
 
         # ---- forward pass: docs are their own queries (already padded) ----
         t0 = time.perf_counter()
@@ -408,7 +408,7 @@ class SparseHnswEngine(SparseFlatEngine):
         ef = getattr(param, "ef", 300) if param is not None else 300
         ef = max(ef, topk)
         q_idx, q_val = self._queries_from_rows(queries)
-        dmask = self._device_mask(mask)
+        dmask = self.device_mask(mask)
         dev = None if self._smesh is not None else self._doc_idx.device
         k = min(topk, self._n)
         if self._smesh is not None:

@@ -42,7 +42,7 @@ from ..ops.quantize import QuantParams, decode, encode, pack_int4, train_quantiz
 from ..ops.runtime import NEG_INF, bucket_queries, device, topk_desc
 from ..ops.topk import blockwise_topk_search
 from ..typing.enum import IndexType, MetricType, QuantizeType
-from .interface import VectorIndexEngine, register_engine, rescan_deficient
+from .interface import VectorIndexEngine, device_row_mask, register_engine, rescan_deficient
 from .refiner import refine
 
 __all__ = ["IvfEngine", "ivf_probe_core"]
@@ -430,7 +430,7 @@ class IvfEngine(VectorIndexEngine):
             valid = valid & np.asarray(mask, dtype=bool)[np.clip(ids, 0, None)]
         k = min(scan_k, int(valid.sum()) or 1)
         if self._smesh is not None:
-            from ..parallel.mesh import shard_rows, sharded_flat_search
+            from ..parallel.mesh import sharded_flat_search
 
             sims, pos = sharded_flat_search(
                 self._smesh,
@@ -438,7 +438,7 @@ class IvfEngine(VectorIndexEngine):
                 [c.reshape(c.shape[0] * c.shape[1], -1) for c in self._lists_codes],
                 self.metric,
                 k,
-                mask=shard_rows(valid, self._smesh),
+                mask=device_row_mask(valid, len(valid), mesh=self._smesh),
                 x_sq_norms=[nr.reshape(-1) for nr in self._lists_norms],
                 dequant=self._dequant,
                 int4_packed=self._int4_packed,
@@ -451,7 +451,7 @@ class IvfEngine(VectorIndexEngine):
                 self._lists_codes.reshape(kv * lmax, -1),
                 self.metric,
                 k,
-                mask=torch.from_numpy(valid).to(dev),
+                mask=device_row_mask(valid, len(valid), dev=dev),
                 x_sq_norms=self._lists_norms.reshape(kv * lmax),
                 dequant=self._dequant,
                 int4_packed=self._int4_packed,
@@ -519,7 +519,7 @@ class IvfEngine(VectorIndexEngine):
                 self._lists_norms,
                 self._lists_ids,
                 self._cent_valid,
-                torch.from_numpy(np.asarray(mask, dtype=bool)) if mask is not None else None,
+                None if mask is None else device_row_mask(mask, self._n),
                 self._dequant,
                 metric=self.metric,
                 nprobe=nprobe,
@@ -536,7 +536,7 @@ class IvfEngine(VectorIndexEngine):
                 self._lists_codes,
                 self._lists_norms,
                 self._lists_ids,
-                torch.from_numpy(np.asarray(mask, dtype=bool)).to(dev) if mask is not None else None,
+                None if mask is None else device_row_mask(mask, self._n, dev=dev),
                 self._dequant,
                 metric=self.metric,
                 nprobe=nprobe,

@@ -23,7 +23,7 @@ from ..model.param.param import FlatQueryParam
 from ..ops.runtime import bucket_queries, device, round_up
 from ..ops.sparse import pad_sparse_rows, prune_sparse_query, sparse_ip_topk
 from ..typing.enum import MetricType
-from .interface import VectorIndexEngine
+from .interface import VectorIndexEngine, device_row_mask
 
 __all__ = ["SparseFlatEngine"]
 
@@ -95,16 +95,12 @@ class SparseFlatEngine(VectorIndexEngine):
                 q_val[i, j] = v
         return q_idx, q_val
 
-    def _device_mask(self, mask: Optional[np.ndarray]) -> torch.Tensor:
+    def device_mask(self, mask: Optional[np.ndarray]) -> torch.Tensor:
         """The (n_pad,) row filter on the device: pad rows out, then `mask`
         (one tensor per shard under a mesh)."""
-        full_mask = np.zeros(self._n_pad, dtype=bool)
-        full_mask[: self._n] = True if mask is None else mask
         if self._smesh is not None:
-            from ..parallel.mesh import shard_rows
-
-            return shard_rows(full_mask, self._smesh)
-        return torch.from_numpy(full_mask).to(self._doc_idx.device)
+            return device_row_mask(mask, self._n, self._n_pad, mesh=self._smesh)
+        return device_row_mask(mask, self._n, self._n_pad, dev=self._doc_idx.device)
 
     def _exact_scan(self, q_idx: np.ndarray, q_val: np.ndarray, dmask: torch.Tensor, k: int):
         """`sparse_ip_topk` over the whole column (over every shard, then
@@ -158,7 +154,7 @@ class SparseFlatEngine(VectorIndexEngine):
             )
         t0 = time.perf_counter()
         q_idx, q_val = self._prep_query_arrays(queries, param)
-        sims, idx = self._exact_scan(q_idx, q_val, self._device_mask(mask), min(topk, self._n))
+        sims, idx = self._exact_scan(q_idx, q_val, self.device_mask(mask), min(topk, self._n))
         sims, idx = self._pad_results(sims[:nq], idx[:nq], topk)
         self.stats.total_search_secs += time.perf_counter() - t0
         return sims, idx

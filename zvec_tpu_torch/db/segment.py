@@ -6,7 +6,7 @@ WAL, forward store, per-vector-column engines, and a contiguous doc_id range
 `segment.cc:780-858`: WAL append is the durability point, then the doc is
 applied to the forward store and the (lazily rebuilt) vector engines.
 
-TPU-native difference: vector "indexers" are array engines whose device state
+Difference on the card: vector "indexers" are array engines whose device state
 rebuilds from the forward store's dense matrix on demand — incremental graph
 mutation is replaced by rebuild-on-flush (the reference itself rebuilds on
 create_index/merge, `segment.cc:1591-1700`).

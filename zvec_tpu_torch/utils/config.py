@@ -14,7 +14,7 @@ from typing import Optional
 
 from ..typing.enum import LogLevel, LogType
 
-__all__ = ["GlobalConfig", "cgroup_cpu_limit", "cgroup_memory_limit_mb"]
+__all__ = ["GlobalConfig", "cgroup_cpu_limit", "cgroup_memory_limit_mb", "scores_by_keys"]
 
 
 def cgroup_cpu_limit() -> int:
@@ -82,7 +82,7 @@ class GlobalConfig:
         self.forward_file_format = "ipc"
         # collection-level mesh sharding: sealed segment codes placed with a
         # corpus sharding over this many devices; 0/1 = single device. The
-        # TPU-native analog of the reference's per-segment plan fan-out
+        # analog of the reference's per-segment plan fan-out
         # (`query_planner.cc:344-448`).
         self.mesh_devices = 0
 
@@ -198,3 +198,11 @@ class GlobalConfig:
             logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
         )
         logger.addHandler(handler)
+
+
+def scores_by_keys(n_pass: int, n: int) -> bool:
+    """Whether `n_pass` rows passing of a segment's `n` are few enough to
+    score by keys, bypassing the index (the reference's brute force by keys,
+    `doc_filter.cc:120-122`): at most `brute_force_by_keys_ratio` of them,
+    and never fewer than one row."""
+    return n_pass <= max(1, int(GlobalConfig.instance().brute_force_by_keys_ratio * n))
