@@ -142,6 +142,7 @@ def test_unfiltered_call_counts_every_alive_row(col):
         with profile(activities=[ProfilerActivity.CPU]):
             col.batch_query("vec", col.queries[:4], topk=K, output_fields=[])
 
+    col.batch_query("vec", col.queries[:4], topk=K, output_fields=[])  # the row mask built, untraced
     counters, masks = _counted(call)
     assert counters == {"zvec.rows_passing": N, "zvec.rows_scored": N_PAD} and masks == 1
 

@@ -191,5 +191,6 @@ def test_a_mask_cache_hit_keeps_the_row_list(monkeypatch):
     assert built == [int(mask.sum())]  # the pass count and the row list, on the miss only
     (again,) = eng._mask_cache.values()
     assert again is entry and entry.rows.dtype == torch.int32 and entry.rows.shape == (1024,)
-    assert got == {"zvec.scans_compacted": 3, "zvec.rows_scored": 3 * 1024}
+    # a writable mask handed to the engine is found by its contents: a digest a call
+    assert got == {"zvec.scans_compacted": 3, "zvec.rows_scored": 3 * 1024, "zvec.mask_digests": 3}
     np.testing.assert_array_equal(_search(eng, q, mask, "fp32_l2")[1], first[1])

@@ -713,7 +713,7 @@ class CollectionImpl:
             if n_rows == 0:
                 continue
             alive, n_alive = self._row_mask(seg, n_rows, filter_str or None)
-            count("rows_passing", (lambda alive=alive: int(alive.sum())) if n_alive is None else n_alive)
+            count("rows_passing", (lambda alive=alive: np.count_nonzero(alive)) if n_alive is None else n_alive)
             # brute-force-by-keys: ultra-selective filters bypass the index
             # and score the surviving rows exactly (`doc_filter.cc:120-122`)
             if (
@@ -1523,16 +1523,47 @@ class CollectionImpl:
         (alive only where it is None; rows appended after the filter's own
         snapshot stay out), and on a filtered call how many pass (else
         None). A filtered call is timed by the spans `filter` (the filter's
-        evaluation) and `mask` (the AND, the fit, the count)."""
-        alive = self.deletes.alive_mask(seg.doc_id_start, n_rows)
+        evaluation) and `mask` (the cache lookup; on a miss the AND, the
+        fit, the count).
+
+        The mask is cached per segment, read-only, under what it is built
+        from: `n_rows`, the segment's first doc id and write version, the
+        filter, and the delete store (`_recover` swaps one in) at its
+        version. Every caller gets the same array until one of those
+        changes, so an engine may key its device copy by the array's
+        identity (`FlatEngine._device_mask`). The key is read before the
+        mask is built: a write racing the build moves the key, and the next
+        call builds again."""
+        deletes = self.deletes
+        key = (n_rows, seg.doc_id_start, filter_str, seg._write_version, id(deletes), deletes.version)
         if filter_str is None:
-            return alive, None
+            return self._cached_row_mask(seg, key, deletes, n_rows, None)
         detail = f"seg_{seg.meta.segment_id}"
         with span("filter", detail):
             fmask = self._filter_mask_for_segment(seg, filter_str)
         with span("mask", detail):
-            alive = alive & fit_row_mask(fmask, n_rows)
-            return alive, int(alive.sum())
+            return self._cached_row_mask(seg, key, deletes, n_rows, fmask)
+
+    @staticmethod
+    def _cached_row_mask(seg, key, deletes, n_rows, fmask):
+        cache = getattr(seg, "_row_mask_cache", None)
+        if cache is None:
+            cache = seg._row_mask_cache = {}
+        hit = cache.get(key)
+        if hit is not None:
+            return hit[1], hit[2]
+        count("row_mask_builds", 1)
+        alive = deletes.alive_mask(seg.doc_id_start, n_rows)
+        n_pass = None
+        if fmask is not None:
+            alive &= fit_row_mask(fmask, n_rows)
+            n_pass = int(np.count_nonzero(alive))
+        alive.flags.writeable = False
+        if len(cache) >= 8:
+            cache.clear()
+        # the entry holds the store, so its id names no other store while cached
+        cache[key] = (deletes, alive, n_pass)
+        return alive, n_pass
 
     def _filter_only_doc_ids(self, filter_str: Optional[str]) -> List[int]:
         """The doc_ids of every alive row passing `filter_str` (every alive

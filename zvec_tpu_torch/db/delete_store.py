@@ -21,8 +21,8 @@ __all__ = ["DeleteStore"]
 class DeleteStore:
     def __init__(self):
         self._deleted: Set[int] = set()
-        # bumped on every change; nothing reads it yet: it is meant to key
-        # the device row-mask cache by identity instead of by contents
+        # bumped on every change: part of the key of a segment's cached row
+        # mask (`CollectionImpl._row_mask`)
         self._version = 0
 
     def __len__(self) -> int:
