@@ -144,7 +144,8 @@ def test_unfiltered_call_counts_every_alive_row(col):
 
     col.batch_query("vec", col.queries[:4], topk=K, output_fields=[])  # the row mask built, untraced
     counters, masks = _counted(call)
-    assert counters == {"zvec.rows_passing": N, "zvec.rows_scored": N_PAD} and masks == 1
+    # the CPU's scan is the blockwise one: N_PAD rows in one block
+    assert counters == {"zvec.rows_passing": N, "zvec.rows_scored": N_PAD, "zvec.scan_blocks": 1} and masks == 1
 
 
 @pytest.mark.parametrize("branch,nq,threshold", ROUTES, ids=[r[0].replace(" ", "_") for r in ROUTES])

@@ -120,10 +120,12 @@ def test_self_seconds_add_up(col, mode):
             query(col, flt="tag != 3")
     got = delta(before, P.span_totals())
     assert got["zvec.query"]["count"] == 1
-    assert {"zvec.filter", "zvec.mask", "zvec.vector_scan", "zvec.engine.finalize", "zvec.engine.wait",
-            "zvec.docs"} <= set(got)
+    assert {"zvec.filter", "zvec.mask", "zvec.vector_scan", "zvec.blockwise", "zvec.engine.finalize",
+            "zvec.engine.wait", "zvec.docs"} <= set(got)
     assert got["zvec.mask"]["count"] == 2  # the AND in the dispatch, the engine's padded mask
-    mask_in_scan = got["zvec.vector_scan"]["total_s"] - got["zvec.vector_scan"]["self_s"]
+    assert got["zvec.blockwise"]["count"] == 1  # the scan's launch (the CPU's scan), inside `vector_scan`
+    scan_children = got["zvec.vector_scan"]["total_s"] - got["zvec.vector_scan"]["self_s"]
+    mask_in_scan = scan_children - got["zvec.blockwise"]["total_s"]
     children = {"zvec.query": ["zvec.filter", "zvec.mask", "zvec.vector_scan", "zvec.engine.finalize",
                                "zvec.docs", "zvec.gc"],
                 "zvec.engine.finalize": ["zvec.engine.wait"]}
@@ -134,7 +136,7 @@ def test_self_seconds_add_up(col, mode):
         assert got[parent]["self_s"] + covered == pytest.approx(got[parent]["total_s"], rel=1e-9, abs=1e-12)
         assert got[parent]["self_s"] >= 0
     assert 0 < mask_in_scan < got["zvec.mask"]["total_s"]
-    for leaf in ("zvec.filter", "zvec.engine.wait", "zvec.docs"):
+    for leaf in ("zvec.filter", "zvec.blockwise", "zvec.engine.wait", "zvec.docs"):
         assert got[leaf]["self_s"] == pytest.approx(got[leaf]["total_s"], rel=1e-9, abs=1e-12)
 
 

@@ -29,7 +29,7 @@ import torch
 from ..model.param.param import FlatQueryParam, QueryParam
 from ..ops.quantize import QuantParams, decode, encode, train_quantizer
 from ..ops.runtime import bucket_queries as _bucket_queries
-from ..ops.runtime import device, round_up
+from ..ops.runtime import cdiv, device, round_up
 from ..ops.topk import blockwise_topk_search
 from ..typing.enum import IndexType, MetricType, QuantizeType
 from ..utils.config import scores_by_keys
@@ -360,17 +360,19 @@ class FlatEngine(VectorIndexEngine):
             if rows is not None:  # positions in the compact buffer -> row ids
                 idx = torch.where(idx >= 0, rows[idx.clamp(min=0)].long(), idx)
         else:
-            sims, idx = blockwise_topk_search(
-                q_dev,
-                st.codes,
-                scan_metric,
-                k,
-                mask=dev_mask.dev,
-                x_sq_norms=st.norms,
-                block_size=_BLOCK_SIZE,
-                dequant=st.dequant,
-                int4_packed=st.int4_packed,
-            )
+            count("scan_blocks", cdiv(st.n_pad, _BLOCK_SIZE))
+            with span("blockwise", self.trace_detail):
+                sims, idx = blockwise_topk_search(
+                    q_dev,
+                    st.codes,
+                    scan_metric,
+                    k,
+                    mask=dev_mask.dev,
+                    x_sq_norms=st.norms,
+                    block_size=_BLOCK_SIZE,
+                    dequant=st.dequant,
+                    int4_packed=st.int4_packed,
+                )
         return ("scan", st, sims, idx, nq, topk, use_refiner, orig_queries)
 
     def _search_finalize(self, handle) -> Tuple[np.ndarray, np.ndarray]:
@@ -387,7 +389,9 @@ class FlatEngine(VectorIndexEngine):
         if use_refiner:
             # exact re-rank against the unquantized store (original queries,
             # original metric — matches the reference BasicRefiner)
-            sims, idx = refine(self._data_fn, orig_queries, idx, self.metric, topk)
+            count("refine_rows", lambda: np.count_nonzero(idx >= 0))
+            with span("refine", self.trace_detail):
+                sims, idx = refine(self._data_fn, orig_queries, idx, self.metric, topk)
             idx = idx.astype(np.int64)
         elif self._hamming or self._binary_codes:
             # ±1 L2 scan -> hamming similarity: hamming = l2^2 / 4

@@ -25,7 +25,10 @@ costs the same one check otherwise; `counter_totals` reads the counters.
 and the deletes; `rows_scored` the rows the engines' scans read on the card,
 padding included (only the passing rows, padded to 1024, where a sparse mask
 compacts a fused flat scan); `scans_compacted` the segment scans that were
-compacted so.
+compacted so; `scan_blocks` the row blocks of the FLAT engine's blockwise
+scans (the scan for large k, such as a quantized index's overscan for its
+refine); `refine_rows` the candidate rows the refine re-scored at full
+precision (the valid ids of its (Q, C) candidates).
 
 `gc_paused()` pauses automatic garbage collection while a call builds its
 answer Docs: built between collections, 10,240 Docs a call would be promoted
@@ -42,7 +45,11 @@ it) around `engine.wait` (the host blocked on the card, then the copy of the
 results), and `docs` (pk resolution and Doc building). `mask` is the row
 mask's work: the AND of the alive and filter masks and its pass count, and
 inside the engine's dispatch the padded mask, its digest, the device-mask
-cache and the copy to the card on a miss.
+cache and the copy to the card on a miss. In the FLAT engine, `blockwise`
+is the launch of the blockwise scan (the dispatch's part of a scan that
+`vector_scan` or `bf_by_keys` holds), and `refine` the re-scoring of a
+quantized scan's candidates against the float32 rows (inside
+`engine.finalize`).
 """
 
 from __future__ import annotations
