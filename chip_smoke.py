@@ -229,9 +229,13 @@ Phases (any failure raises, and the exit code is non-zero):
      returned scores equal to q.x of their rows, the beam card against CPU
      (64 queries), a reopen without a build
  15. codes: FLAT on phase 4's data with four fields (L2 FP16, L2 INT8, L2
-     INT4, IP): K1 at k 10 on each field's codes, recall@10 against the fp32
-     oracle with the refine off and on, K1's answer equal to its plain
-     version on the engine's own codes (ties aside) with its time and bound;
+     INT4, IP): K1 at k 10 on each field's codes (and at the refine's k 100
+     with the refine on), recall@10 against the fp32 oracle with the refine
+     off and on (at least 0.999 on the fp32 field and the refined FP16 and
+     INT8 fields), K1's answer equal to its plain version on the engine's own
+     codes (ties aside) with its time and bound; on the INT8 field also
+     stage one, the merge and stage two at the refine's k 100 against their
+     plain versions on those codes, with stage one's time and bound;
      IVF on phase 7's deployment with an IVF-SQ8 field (L2, SOAR, INT8) and
      an IVF IP field (SOAR): nprobe 8 / 16 / 32 at phase 7's floors, the
      probe card against CPU; HNSW on bench_suite.py's config #3 (the GloVe-100
@@ -471,6 +475,7 @@ CP_RECALL_SLACK = 0.01  # recall@10 at ef 256 >= phase 6's, less this
 # phase codes: FP16 / INT8 / INT4 codes on FLAT (phase 4's data), IVF (phase
 # 7's deployment) and HNSW (bench_suite.py's config #3, the GloVe-100 shape)
 CD_FLAT_FIELDS = {"fp16": ("L2", "FP16"), "int8": ("L2", "INT8"), "int4": ("L2", "INT4"), "ip": ("IP", None)}
+CD_OVERSCAN_K = 10 * K  # the refine's scan at top-K: FlatQueryParam's refiner_scale_factor, 10
 CD_IVF_FIELDS = {"sq8": ("L2", "INT8"), "ip": ("IP", None)}
 CD_NPROBES = (8, 16, 32)
 CD_HNSW_N, CD_HNSW_D, CD_HNSW_SEED = 200_000, 100, 7  # bench_suite.py: SUITE_N_HNSW, d, SEED
@@ -868,14 +873,14 @@ def _make_codes(x: torch.Tensor, ctype: str, metric: str):
     return codes.contiguous(), norms, dequant
 
 
-def _check_final(ks, ki, ps, pi):
+def _check_final(ks, ki, ps, pi, k: int = K):
     """Kernel top-k (ks, ki) against the plain top-(k+1) (ps, pi)."""
-    near_tie = (ps[:, K - 1] - ps[:, K]).abs() <= TIE_RTOL * ps[:, K - 1].abs()
+    near_tie = (ps[:, k - 1] - ps[:, k]).abs() <= TIE_RTOL * ps[:, k - 1].abs()
     ks_sorted = torch.sort(ki, dim=1).values
-    ps_sorted = torch.sort(pi[:, :K], dim=1).values
+    ps_sorted = torch.sort(pi[:, :k], dim=1).values
     differ = (ks_sorted != ps_sorted).any(dim=1)
     bad = int((differ & ~near_tie).sum())
-    err = float((ks - ps[:, :K]).abs().max())
+    err = float((ks - ps[:, :k]).abs().max())
     return bad, int(differ.sum()), err
 
 
@@ -3897,11 +3902,50 @@ def phase_compact(workdir: Path, dev: torch.device, base: dict) -> tuple:
     return launches, case
 
 
+def _codes_flat_overscan(f: str, st, qd: torch.Tensor, mask: torch.Tensor, kw: dict) -> None:
+    """The refine's scan on a field's own device codes: stage one, the merge
+    and stage two at k = CD_OVERSCAN_K against their plain versions under
+    phase 3's rules, the final top-k against the plain top-(k+1), ties aside,
+    then stage one's time and bound (raises on a disagreement)."""
+    from zvec_tpu_torch.ops import flat_scan as fs
+
+    k = CD_OVERSCAN_K
+    wkw = dict(kw, topk=k)
+    args = (qd, st.codes, st.norms, mask)
+    label = f"codes flat {f} k={k}"
+    ts_k, ti_k = fs.flat_scan_stage1(*args, **wkw)
+    ts_p, ti_p = fs.flat_scan_stage1(*args, plain=True, **wkw)
+    torch.cuda.synchronize()
+    s1_err = float((ts_k - ts_p).abs().max())
+    s1_ok = torch.allclose(ts_k, ts_p, rtol=STAGE1_RTOL, atol=STAGE1_ATOL)
+    swaps = float((ti_k != ti_p).float().mean())
+    del ts_p, ti_p
+    _merge_case(ts_k, ti_k, k, label)
+    _rescore_case(args, wkw, ts_k, ti_k, label)
+    del ts_k, ti_k
+    ks, ki = fs.flat_scan_topk(*args, **wkw)
+    ps, pi = fs.flat_scan_topk_plain(*args, **{**wkw, "topk": k + 1})
+    bad, differ, err = _check_final(ks, ki, ps, pi, k)
+    finite = bool(torch.isfinite(ks).all()) and bool((ki >= 0).all())
+    del ks, ki, ps, pi
+    k_ms = time_ms(lambda: fs.flat_scan_stage1(*args, **wkw))
+    p_ms = time_ms(lambda: fs.flat_scan_stage1(*args, plain=True, **wkw))
+    tile = fs.pick_tile(st.n_pad, k)
+    bound = _bound(Q, st.n_pad, D, k, tile, st.codes)
+    log(f"{label} (tile {tile}, {_path_text(_k1_path(st.codes))}): stage1 max|dkey| {s1_err:.3g} id swaps "
+        f"{swaps:.2e}; final rows differing {differ} (outside near-ties {bad}) max|dscore| {err:.3g}; stage1 "
+        f"{k_ms:.3f} ms vs plain {p_ms:.3f} ms (beside the other workers); " + _bound_text(bound, k_ms, None))
+    if not (s1_ok and swaps <= STAGE1_MAX_ID_SWAPS and bad == 0 and finite):
+        raise AssertionError(f"{label}: the scan disagrees with its plain version on the engine's codes")
+
+
 def _codes_flat(workdir: Path, dev: torch.device) -> int:
     """FLAT with FP16 / INT8 / INT4 codes and IP, four fields on phase 4's
-    data: K1 on each field's codes (refine off), recall with and without the
-    refine, and K1's answer equal to its plain version on the engine's own
-    device codes, ties aside. Returns K1's launches on the fields' queries."""
+    data: K1 on each field's codes (at k = K with the refine off, at the
+    refine's CD_OVERSCAN_K with it on), recall with and without the refine,
+    K1's answer equal to its plain version on the engine's own device codes,
+    ties aside, and on the INT8 field the scan at CD_OVERSCAN_K held so too.
+    Returns K1's launches on the fields' queries."""
     import zvec_tpu_torch as zt
     from zvec_tpu_torch.model.param.param import FlatQueryParam
     from zvec_tpu_torch.ops import flat_scan as fs
@@ -3937,10 +3981,13 @@ def _codes_flat(workdir: Path, dev: torch.device) -> int:
                 f"{time.perf_counter() - t0 - 2 * batch_s:.2f} s); recall@{K} {_recall(ids, oracle[m]):.4f} against "
                 f"the exact fp32 {m} oracle; codes {st.codes.dtype} {tuple(st.codes.shape)}, dequant {st.dequant}; "
                 f"K1 launches {k1}")
-            if refine is not True and k1 == 0:
-                raise AssertionError(f"codes flat {f}: the scan at k = {K} never launched the flat-scan kernel")
+            if k1 == 0:
+                raise AssertionError(f"codes flat {f}: the scan at k = {CD_OVERSCAN_K if refine else K} never "
+                                     f"launched the flat-scan kernel")
             if refine is None and _recall(ids, oracle[m]) < 1.0 - 1e-3:
                 raise AssertionError(f"codes flat {f}: the exact fp32 scan reads below 1.0")
+            if refine and q in ("FP16", "INT8") and _recall(ids, oracle[m]) < 1.0 - 1e-3:
+                raise AssertionError(f"codes flat {f}: the fp32 refine of {CD_OVERSCAN_K} candidates reads below 1.0")
         launches = _path_launches("codes_flat")
         # K1's answer (the engine's own scan, refine off) against its plain
         # version on the same device codes, norms and mask
@@ -3955,9 +4002,11 @@ def _codes_flat(workdir: Path, dev: torch.device) -> int:
         log(f"codes flat {f}: K1 on the engine's codes vs its plain version: rows differing {differ} (outside "
             f"near-ties {bad}), max |dscore| {err:.3g}; stage1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms (beside the "
             f"other workers); " + _bound_text(bound, k_ms, _library_ms(qd, st.codes)))
-        _restore_launches(launches)  # the comparison's launches are not the path's
         if bad:
             raise AssertionError(f"codes flat {f}: K1 disagrees with its plain version on the engine's codes")
+        if q == "INT8":
+            _codes_flat_overscan(f, st, qd, mask, kw)
+        _restore_launches(launches)  # the comparisons' launches are not the path's
     col._impl.close()
     shutil.rmtree(path, ignore_errors=True)
     return launches

@@ -9,13 +9,13 @@ maps the positions back to row ids through the row list. Held here:
 
 - to the same engine's masked scan of every row (the ratio set to 0):
   scores equal, and ids equal or naming equal rows, on fp32 L2, fp16, int8
-  (refiner off, and on at topk 3, whose scan_k 30 stays within the fused
-  route's k <= 32, so the refiner sees row ids) and COSINE codes, for pass
-  sets at the end of the rows, a random 1%, rows of one tile only, fewer
-  than topk rows, none, and exact ties (pairs of equal rows). Of two rows
-  with one score both scans return the one whose winner group ranks first,
-  then the lower position in it: the position in the scanned buffer, so the
-  two layouts may name different rows of a tie;
+  (refiner off, and on at topk 3: a scan_k of 30, which the fused route
+  takes as it takes every k up to 128, so the refiner sees row ids) and
+  COSINE codes, for pass sets at the end of the rows, a random 1%, rows of
+  one tile only, fewer than topk rows, none, and exact ties (pairs of equal
+  rows). Of two rows with one score both scans return the one whose winner
+  group ranks first, then the lower position in it: the position in the
+  scanned buffer, so the two layouts may name different rows of a tie;
 - to `zvec_tpu`'s `flat_scan_topk` (the Pallas kernel in interpret mode)
   over the engine's padded codes under the same mask: ids equal outside
   near-ties and equal rows, scores within 1e-4;

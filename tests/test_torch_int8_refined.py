@@ -12,8 +12,9 @@ and the refine in float64), at D = 96 (Deep10M's width).
   and move that place (`portbench/reference/int8_refined.py::hold`); scores within 1e-5 of the float64
   distance, relative: to the float32 row with the refine, to the row's
   dequantized codes without. Each call takes the blockwise scan once with
-  k = 10 x topk (the refine's overscan; the fused scan takes k <= 32 only),
-  under the filter's mask.
+  k = 10 x topk (the refine's overscan), under the filter's mask: the CPU's
+  route; on the card the fused scan takes k up to 128, the overscan among
+  them, and the blockwise scan k = 129 on (pinned at the cell's shape).
 - Tracing: one `zvec.blockwise` and one `zvec.refine` span a segment a call,
   the counters `zvec.scan_blocks` (ceil(n_pad / block)) and
   `zvec.refine_rows` (Q x min(100, n) a segment); nothing with tracing off.
@@ -47,6 +48,7 @@ from portbench.tests.conftest import REPO, TINY_POOL, TINY_ROWS, make_tiny_root 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from zvec_tpu_torch.core import flat as flat_mod  # noqa: E402
 from zvec_tpu_torch.model.param import FlatQueryParam  # noqa: E402
+from zvec_tpu_torch.ops import flat_scan  # noqa: E402
 from zvec_tpu_torch.utils import profiler as P  # noqa: E402
 
 N, D, NQ, K = 8192, 96, 32, 10
@@ -191,11 +193,17 @@ def test_hold_explains_ties_and_moved_edges():
 
 
 @pytest.mark.parametrize("rows,blocks", [(4_000_000, 31), (3_000_000, 23)])
-def test_the_overscan_takes_the_blockwise_scan_at_the_cells_shape(rows, blocks):
+def test_the_overscan_takes_the_blockwise_scan_at_the_cells_shape(monkeypatch, rows, blocks):
+    # the route of the refine's overscan at the cell's shape: the fused scan
+    # takes k up to the kernels' 128 lanes, the blockwise scan (in `blocks`
+    # blocks) what lies past them
+    monkeypatch.setattr(flat_scan, "_scratch_budget", lambda dev: 80 * 10**9 // 8)  # an eighth of 80 GB
     n_pad = -(-rows // flat_mod._ROW_ALIGN_BIG) * flat_mod._ROW_ALIGN_BIG
-    codes = SimpleNamespace(dtype=torch.int8, is_cuda=True, shape=(n_pad, D))
+    codes = SimpleNamespace(dtype=torch.int8, is_cuda=True, shape=(n_pad, D), device=torch.device("cuda"))
     assert flat_mod.kernel_takes(codes, (0.02, 0.0), rows, K)  # top-10 alone: the fused scan
-    assert not flat_mod.kernel_takes(codes, (0.02, 0.0), rows, C)  # the refine's 100: blockwise
+    assert flat_mod.kernel_takes(codes, (0.02, 0.0), rows, C)  # the refine's 100: the fused scan
+    assert flat_mod.kernel_takes(codes, (0.02, 0.0), rows, 128)
+    assert not flat_mod.kernel_takes(codes, (0.02, 0.0), rows, 129)  # past 128 lanes: blockwise
     assert -(-n_pad // flat_mod._BLOCK_SIZE) == blocks
 
 

@@ -2,10 +2,11 @@
 
 Port of `zvec_tpu/core/flat.py`. Codes are padded and moved to the device
 once per data version; every query batch then runs either the fused CUDA scan
-(`ops/flat_scan.py`, large corpora and small k) or the blockwise torch scan
-(`ops/topk.py`). A fused scan under a mask that passes few enough rows to
-score by keys (`utils/config.py::scores_by_keys`) scans only those: their
-codes are gathered into a compact buffer on the card, and the scan's
+(`ops/flat_scan.py`: large corpora and k up to 128, the refine's overscan
+among them) or the blockwise torch scan (`ops/topk.py`: small corpora, k
+past 128, CPU tensors). A fused scan under a mask that passes few enough
+rows to score by keys (`utils/config.py::scores_by_keys`) scans only those:
+their codes are gathered into a compact buffer on the card, and the scan's
 positions map back to row ids through the row list. Under a collection mesh
 (`init(mesh_devices=N)`) the padded rows split into N contiguous shards, one
 per mesh device, and a batch runs that choice on every shard before the
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..model.param.param import FlatQueryParam, QueryParam
+from ..ops.flat_scan import query_chunk
 from ..ops.quantize import QuantParams, decode, encode, train_quantizer
 from ..ops.runtime import bucket_queries as _bucket_queries
 from ..ops.runtime import cdiv, device, round_up
@@ -49,12 +51,14 @@ _BLOCK_SIZE = 131072
 def kernel_takes(codes: torch.Tensor, dequant, n: int, k: int) -> bool:
     """The rule of the fused CUDA scan: codes on the card, fp32 / fp16 codes
     or int8 / nibble-packed int4 codes with the in-kernel affine-dequant
-    epilogue, rows a multiple of 1024, a large corpus (n rows), small k
-    (group-max extraction)."""
+    epilogue, rows a multiple of 1024, a large corpus (n rows), and k within
+    the kernels' 128 lanes with stage one's output for one block of 128
+    queries within its budget (`query_chunk`)."""
     dtype_ok = (dequant is None and codes.dtype in (torch.float32, torch.float16)) or (
         dequant is not None and codes.dtype == torch.int8
     )
-    return dtype_ok and codes.is_cuda and codes.shape[0] % 1024 == 0 and n >= _BIG_N and k <= 32
+    return (dtype_ok and codes.is_cuda and codes.shape[0] % 1024 == 0 and n >= _BIG_N
+            and query_chunk(codes.shape[0], k, codes.device) > 0)
 
 
 class _State(NamedTuple):
@@ -339,6 +343,8 @@ class FlatEngine(VectorIndexEngine):
         if fused:
             from ..ops.flat_scan import flat_scan_topk
 
+            if k > 32:  # a wide k: the refine's overscan, or a top-k past 32
+                count("scans_wide_k", 1)
             codes, norms = st.codes, st.norms
             if rows is not None:
                 # the passing rows, in the order the full scan reads them

@@ -39,6 +39,13 @@ in shared memory, where the plain version writes a (Q, C, D) fp32 copy of
 every candidate and sorts all C scores (see the note at the top of
 `csrc/flat_rescore.cu`).
 
+Stage one writes (n_tiles, topk, Q) keys and ids, 8 x N x k x Q / TILE_N
+bytes in all, which a wide k over many rows and queries would grow past the
+card's memory. So `_scan` runs stage one, the merge and stage two per chunk
+of whole 128-query blocks (`query_chunk`), each chunk's stage-one output
+within an eighth of the device's memory; the kernels treat every 128-query
+block alike, so the chunks answer as one batch would.
+
 The kernels are built at first use from `csrc/*.cu` with nvcc into
 `_build/` (a plain C interface loaded with ctypes), keyed by a hash of the
 sources.
@@ -69,10 +76,12 @@ __all__ = [
     "flat_scan_rescore",
     "copy_bytes",
     "pick_tile",
+    "query_chunk",
     "build_kernels",
 ]
 
-_LANES = 128  # group-max width
+_LANES = 128  # group-max width, and the largest k the three kernels take
+_QB = 128  # queries per block of stage one
 _MAX_CAND = 1024  # cap on topk * GROUP rescore candidates per query
 _PLAIN_CHUNK = 1 << 26  # (Q, rows) key elements the plain stage one holds at once
 _RESCORE_MAX_D = 32768  # query floats stage two keeps in shared memory
@@ -95,6 +104,25 @@ def pick_tile(n: int, topk: int) -> int:
         if n % t == 0 and (t // _LANES) * topk <= _MAX_CAND:
             return t
     raise ValueError(f"N={n} must be a multiple of 1024 (topk={topk})")
+
+
+def _scratch_budget(dev: torch.device) -> int:
+    """Bytes stage one's output may take at once: an eighth of the device's
+    memory (the card's, or the host's for CPU tensors)."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory // 8
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 8
+
+
+def query_chunk(n: int, topk: int, dev: torch.device) -> int:
+    """Queries one pass of the scan over n rows at topk takes on `dev`: the
+    most whole 128-query blocks whose stage-one output, (n_tiles, topk, Q)
+    f32 keys and int32 ids, fits `_scratch_budget`. 0 where not one block
+    fits, or topk lies outside [1, 128]: the fused scan does not take it."""
+    if not 1 <= topk <= _LANES:
+        return 0
+    per_block = (n // pick_tile(n, topk)) * topk * _QB * 8
+    return _scratch_budget(dev) // per_block * _QB
 
 
 def copy_bytes(row_bytes: int, data_ptr: int) -> int:
@@ -519,12 +547,24 @@ flat_scan_rescore.launches = 0  # stage-two kernel launches (not plain runs)
 
 def _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain, exact_tf32=False):
     q, norms, args, kw = _prepare(q, codes, norms, mask, metric, topk, dequant, int4_dim, exact_tf32)
-    tile_s, tile_i = _stage1(args, kw, plain)
-    # global merge over the per-tile winner groups; keys are rank-equivalent
-    # per query, so this picks the real winner groups
-    top_s, gids = _merge(tile_s, tile_i, topk, plain)
-    rargs, rkw = _rescore_inputs(q, norms, args, kw, dequant)
-    return _rescore(*rargs, top_s, gids, plain=plain, **rkw)
+    step = query_chunk(codes.shape[0], topk, codes.device)
+    if step == 0:
+        raise ValueError(f"flat scan: stage one's output for {_QB} queries over N={codes.shape[0]} "
+                         f"at topk={topk} exceeds its budget")
+    parts = []
+    for c0 in range(0, q.shape[0], step):
+        rows = slice(c0, c0 + step)
+        cargs = (args[0][rows], args[1][rows], args[2][rows], *args[3:])
+        tile_s, tile_i = _stage1(cargs, kw, plain)
+        # global merge over the per-tile winner groups; keys are
+        # rank-equivalent per query, so this picks the real winner groups
+        top_s, gids = _merge(tile_s, tile_i, topk, plain)
+        del tile_s, tile_i  # the next chunk's stage one reuses their memory
+        rargs, rkw = _rescore_inputs(q[rows], norms, cargs, kw, dequant)
+        parts.append(_rescore(*rargs, top_s, gids, plain=plain, **rkw))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([s for s, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def flat_scan_topk(q, codes, norms, mask, *, metric, topk, dequant=None, int4_dim=None,
@@ -540,7 +580,10 @@ def flat_scan_topk(q, codes, norms, mask, *, metric, topk, dequant=None, int4_di
     the metric L2 and every query entry in {-1, 0, +1}.
 
     CUDA tensors run stage one, the merge and stage two in their CUDA
-    kernels, or raise; CPU tensors run the plain versions."""
+    kernels, or raise; CPU tensors run the plain versions. The queries run
+    in chunks of `query_chunk` (one chunk unless stage one's output would
+    pass an eighth of the device's memory); it raises where not one block
+    of 128 queries fits."""
     return _scan(q, codes, norms, mask, metric, topk, dequant, int4_dim, plain=False,
                  exact_tf32=exact_tf32)
 

@@ -3,8 +3,8 @@
 Port of the XLA program `zvec_tpu/ops/topk.py::blockwise_topk_search`: walk
 the codes in blocks, score each (Q, BLOCK) tile, fuse the filter mask as a
 large-negative select, and fold the block into a running per-query top-k.
-It is the flat scan for small corpora and large k; the fused CUDA kernel
-(`ops/flat_scan.py`) takes the rest. Selection keeps `lax.top_k`'s tie
+It is the flat scan for small corpora, k past 128 and CPU tensors; the fused
+CUDA kernels (`ops/flat_scan.py`) take the rest. Selection keeps `lax.top_k`'s tie
 order (lower index first), so both packages return the same ids on ties.
 """
 

@@ -210,9 +210,10 @@ def sharded_flat_search(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact sharded top-k: every shard scans its rows with the FLAT engine's
     own scan (the fused CUDA kernel where the single-device rule takes it:
-    codes on the card, R % 1024 == 0, R >= 100,000, k <= 32; the blockwise
-    torch scan elsewhere), then the per-shard top-k merge. Returns (sims
-    (Q, topk) desc, global row ids, -1 padded). Every storage type of the
+    codes on the card, R % 1024 == 0, R >= 100,000, k <= 128 with stage
+    one's output for 128 queries within its budget; the blockwise torch scan
+    elsewhere), then the per-shard top-k merge. Returns (sims (Q, topk)
+    desc, global row ids, -1 padded). Every storage type of the
     FLAT engine: fp32 / fp16 / int8 / packed int4 with the dequant epilogue."""
     from ..core.flat import kernel_takes
     from ..ops.flat_scan import flat_scan_topk

@@ -25,10 +25,12 @@ costs the same one check otherwise; `counter_totals` reads the counters.
 and the deletes; `rows_scored` the rows the engines' scans read on the card,
 padding included (only the passing rows, padded to 1024, where a sparse mask
 compacts a fused flat scan); `scans_compacted` the segment scans that were
-compacted so; `scan_blocks` the row blocks of the FLAT engine's blockwise
-scans (the scan for large k, such as a quantized index's overscan for its
-refine); `refine_rows` the candidate rows the refine re-scored at full
-precision (the valid ids of its (Q, C) candidates).
+compacted so; `scans_wide_k` the segment scans that took the fused kernels
+at k > 32 (a quantized index's overscan for its refine, or a wide top-k);
+`scan_blocks` the row blocks of the FLAT engine's blockwise scans (the scan
+for k > 128, small corpora and CPU tensors); `refine_rows` the candidate
+rows the refine re-scored at full precision (the valid ids of its (Q, C)
+candidates).
 
 `gc_paused()` pauses automatic garbage collection while a call builds its
 answer Docs: built between collections, 10,240 Docs a call would be promoted
